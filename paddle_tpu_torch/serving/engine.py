@@ -29,8 +29,7 @@ import torch.nn.functional as F
 
 from ..device import resolve_device
 from ..framework.random import make_generator
-from ..kernels.paged_attention import (paged_attention_decode,
-                                       paged_attention_reference)
+from ..kernels.paged_attention import paged_attention_decode
 from ..models.gpt import (GPTConfig, _ln, flash_attention_gate, gpt_block,
                           sample_logits, stack_gpt_weights)
 from .kv_pool import PagePool
@@ -50,8 +49,7 @@ def _layer(blocks, i):
 
 
 def decode_step_fn(params, k_pages, v_pages, tokens, positions, page_table,
-                   seq_lens, generator=None, *, eps, temperature, top_k,
-                   use_kernel):
+                   seq_lens, generator=None, *, eps, temperature, top_k):
     """One continuous-batching decode step: for every (possibly idle)
     batch slot, embed the last token, write its K/V into the slot's page
     row, attend over the page table, and sample the next token.
@@ -75,8 +73,6 @@ def decode_step_fn(params, k_pages, v_pages, tokens, positions, page_table,
     # page 0 is never read unmasked.
     rows = page_table[torch.arange(B, device=pos.device), pos // ps].long() \
         * ps + pos % ps
-    attend = paged_attention_decode if use_kernel \
-        else paged_attention_reference
     for i in range(L):
         p = _layer(blocks, i)
         h = _ln(x, p["ln1_w"], p["ln1_b"], eps)
@@ -88,7 +84,8 @@ def decode_step_fn(params, k_pages, v_pages, tokens, positions, page_table,
             0, rows, k.to(k_pages.dtype))
         v_pages[i].view(np_ * ps, nkv, d).index_copy_(
             0, rows, v.to(v_pages.dtype))
-        attn = attend(q, k_pages[i], v_pages[i], page_table, seq_lens)
+        attn = paged_attention_decode(q, k_pages[i], v_pages[i],
+                                      page_table, seq_lens)
         o = attn.to(x.dtype).reshape(B, nh * d) @ p["wo"].reshape(nh * d, H)
         x = x + o[:, None, :] + p["bo"]
         h2 = _ln(x, p["ln2_w"], p["ln2_b"], eps)
@@ -146,7 +143,7 @@ class ServingEngine:
     def __init__(self, model, config=None, *, page_size=16, num_pages=None,
                  max_seq_len=None, decode_buckets=(1, 2, 4, 8),
                  prefill_buckets=None, temperature=0.0, top_k=0, seed=0,
-                 use_flash=None, use_kernel=True, device=None,
+                 use_flash=None, device=None,
                  quantize=None, prefill_chunk=None, prefix_cache=False,
                  disaggregated=False, autofuse=None):
         for name, value in (("quantize", quantize),
@@ -165,7 +162,6 @@ class ServingEngine:
         self.compute_dtype = self.params["wte"].dtype
         self.temperature = float(temperature)
         self.top_k = int(top_k)
-        self.use_kernel = bool(use_kernel)
         max_seq_len = int(max_seq_len or cfg.max_position_embeddings)
         if max_seq_len > cfg.max_position_embeddings:
             raise ValueError("max_seq_len exceeds the position table")
@@ -275,6 +271,16 @@ class ServingEngine:
         """One decode step for ``seq_ids`` (each already holding its new
         position via ``pool.extend``), padded to ``bucket`` with idle
         slots. Returns the next token per live sequence."""
+        nxt = self._launch_decode(self._decode_inputs(seq_ids, bucket))
+        out = [int(t) for t in nxt[:len(seq_ids)].tolist()]
+        for sid, t in zip(seq_ids, out):
+            self._last_token[sid] = t
+        return out
+
+    def _decode_inputs(self, seq_ids, bucket=None):
+        """Check the bucket and upload a decode step's host state: the
+        last tokens, positions, page table and lengths ``[bucket, ...]``.
+        The uploads are blocking copies, so they wait for the stream."""
         n = len(seq_ids)
         bucket = self.decode_bucket(n) if bucket is None else bucket
         if bucket not in self.decode_buckets:
@@ -288,18 +294,16 @@ class ServingEngine:
         tokens = np.asarray([self._last_token.get(sid, 0) for sid in slots],
                             np.int32)
         positions = np.maximum(lens - 1, 0).astype(np.int32)
+        return tuple(self._put(a) for a in (tokens, positions, table, lens))
+
+    def _launch_decode(self, inputs):
+        """Launch one decode step on uploaded ``inputs``; returns the next
+        tokens ``[bucket]`` on the device without waiting for them."""
         with torch.no_grad():
-            nxt = decode_step_fn(
-                self.params, self.pool.k_pages, self.pool.v_pages,
-                self._put(tokens), self._put(positions), self._put(table),
-                self._put(lens), self._generator,
-                eps=self.cfg.layer_norm_epsilon,
-                temperature=self.temperature, top_k=self.top_k,
-                use_kernel=self.use_kernel)
-        out = [int(t) for t in nxt[:n].tolist()]
-        for sid, t in zip(seq_ids, out):
-            self._last_token[sid] = t
-        return out
+            return decode_step_fn(
+                self.params, self.pool.k_pages, self.pool.v_pages, *inputs,
+                self._generator, eps=self.cfg.layer_norm_epsilon,
+                temperature=self.temperature, top_k=self.top_k)
 
     def release(self, seq_id, token_ids=None):
         """Free a finished sequence's pages. ``token_ids`` is accepted for

@@ -172,12 +172,11 @@ def test_decode_step_fn_matches_jax():
     lens = np.array([19, 8, 9, 0], np.int32)
     pos = np.maximum(lens - 1, 0).astype(np.int32)
     toks = rng.integers(0, cfg.vocab_size, (4,)).astype(np.int32)
-    kw = dict(eps=cfg.layer_norm_epsilon, temperature=0.0, top_k=0,
-              use_kernel=True)
+    kw = dict(eps=cfg.layer_norm_epsilon, temperature=0.0, top_k=0)
     jk, jv, jt = jengine.decode_step_fn(
         _to_jax(params), jnp.asarray(kp), jnp.asarray(vp), jnp.asarray(toks),
         jnp.asarray(pos), jnp.asarray(pt), jnp.asarray(lens),
-        jax.random.key(0), **kw)
+        jax.random.key(0), use_kernel=True, **kw)
     tk, tv = torch.tensor(kp), torch.tensor(vp)
     tt = decode_step_fn(_to_torch(params), tk, tv, torch.tensor(toks),
                         torch.tensor(pos), torch.tensor(pt),
