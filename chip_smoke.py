@@ -2,17 +2,23 @@
 
     python3 chip_smoke.py [--json-out PATH]
 
-Three phases, one result per line:
+Six phases, one result per line:
 
 1. device and build — the card's name and power limit, and the build of
    every CUDA kernel from ``paddle_tpu_torch/csrc`` with nvcc for sm_90a;
-2. kernels against their plain PyTorch versions on the card, at the
-   serving shapes, in bf16 and f32, with each kernel's time (CUDA events),
-   its plain version's time, its bound and one PyTorch library call as a
-   yardstick;
-3. the serving main path at the full width of GPT-345M (24 layers,
-   hidden 1024, 8 heads of 128, vocab 50304, random weights from a seed):
-   eight ragged requests through ``ServingEngine`` +
+2. ``flash``, ``flash_bwd``, ``paged`` — each kernel against its plain
+   PyTorch version on the card, in bf16 and f32: the flash forward and the
+   paged decode at the serving shapes; the flash backward (dQ and dK/dV
+   kernels) over the forward's cases and a causal ``q_offset`` case, and
+   through the autograd Function against autograd of the plain forward;
+   then the forward and the backward at the training shape, on the q/k/v
+   views of one fused QKV tensor, with a control that shows the bf16
+   gradient limit tells the kernels' rounding points from none. Each
+   kernel's time (CUDA events), its plain
+   version's time, its bound and one PyTorch library call as a yardstick;
+3. ``serving`` — the serving main path at the full width of GPT-345M (24
+   layers, hidden 1024, 8 heads of 128, vocab 50304, random weights from a
+   seed): eight ragged requests through ``ServingEngine`` +
    ``ContinuousBatchingScheduler``, in bf16 and in f32. bf16: after a
    warm-up that touches every prefill and decode bucket, the batch is
    served three times (throughput, latency, memory and kernel launch
@@ -20,7 +26,16 @@ Three phases, one result per line:
    by CUDA events, and eight prefills and 16 decode steps under
    ``torch.profiler`` for the device time by kernel group. f32: every
    generated token is checked against the plain dense model,
-   teacher-forced.
+   teacher-forced;
+4. ``training`` — the training main path: ``GPTHybridTrainStep`` on
+   GPT-345M at full width (B = 12, S = 1024, bf16 compute, f32 masters and
+   moments, ``remat="dots"``), 3 warm-up and 5 timed steps on one repeated
+   batch (tokens/s, step time, MFU, peak memory, every loss, and the flash
+   kernels' launches per step, checked exactly), then one step split into
+   forward + backward and AdamW by CUDA events and one step under
+   ``torch.profiler``. Then, in f32 at full width and 4 layers, the
+   kernel path against the plain attention path, and ``remat="dots"``
+   against no remat: first-step gradients and three steps of losses.
 
 Exits non-zero, without the final line, when CUDA is unavailable or any
 phase fails. The last line is ``{"ok": true, "device": {...}}``; the line
@@ -52,8 +67,40 @@ N_RUNS = 3          # bf16 serving runs, each timed and counted on its own
 # spacings), and in bf16 the mean signed error along ref, over the mean
 # |ref|: round-to-nearest leaves it near 0, truncation makes it ~ -3e-3.
 TOL = {("flash", "float32"): 1e-4, ("flash", "bfloat16"): 8e-3,
-       ("paged", "float32"): 1e-4, ("paged", "bfloat16"): 5e-3}
+       ("paged", "float32"): 1e-4, ("paged", "bfloat16"): 5e-3,
+       # gradients, as a share of the largest |ref| (at least 1), beside
+       # GRAD_TOL below: the Function's reference rounds neither P before
+       # P^T dO nor dS, so up to S rounding errors of dS add up there
+       ("flash_bwd", "float32"): 1e-4, ("flash_bwd", "bfloat16"): 8e-3,
+       ("flash_autograd", "float32"): 1e-4,
+       ("flash_autograd", "bfloat16"): 2e-2}
+# gradients, also: (the largest |out - ref| / (|ref| + rms(ref)) over the
+# elements, rms(out - ref) / rms(ref)). One bf16 spacing is at most 2^-7
+# (7.8e-3) of an element. "flash_bwd" holds the kernels against the plain
+# backward, which rounds where they do (P before P^T dO, dS before dS K
+# and dS^T Q), so they differ only where a sum in another order flips a
+# rounding: on an H100, bf16 up to 4.3e-3 elementwise and 6.7e-5 rms
+# (GQA dv), f32 1.1e-5 and 5.9e-7. The control, the plain backward in f32
+# (no rounding of P or dS) rounded to bf16 at the end, gave 2.5e-3 rms
+# there and must fail the bf16 rms limit at the training shape, or the
+# check could not tell the rounding points apart. "flash_autograd" holds
+# the Function against autograd of the plain forward, which rounds
+# neither P in the backward nor dS (seen: bf16 5.8e-2 elementwise, 4.3e-3
+# rms; f32 7.0e-6 and 7.7e-7).
+GRAD_TOL = {("flash_bwd", "float32"): (1e-4, 1e-5),
+            ("flash_bwd", "bfloat16"): (8e-3, 2e-4),
+            ("flash_autograd", "float32"): (1e-4, 1e-5),
+            ("flash_autograd", "bfloat16"): (1.2e-1, 1e-2)}
 BIAS_TOL = 1e-3
+
+# the trainer: bench_gpt's "345m" row (B = 12, S = 1024, remat "dots")
+TRAIN_B, TRAIN_S, WARMUP_STEPS, TIMED_STEPS = 12, 1024, 3, 5
+# f32 trainer checks at 4 layers: each gradient's |a - b| / |b| (norms)
+# and the loss of 3 steps. Kernel vs plain attention: f32 on both, sums in
+# other orders. "dots" vs no remat: the recompute repeats the same
+# deterministic kernels, so they should agree to rounding or better.
+GRAD_REL_TOL = {"kernel_vs_plain": 1e-4, "dots_vs_none": 1e-6}
+TRAIN_LOSS_TOL = 1e-4
 
 
 def _log(msg):
@@ -83,14 +130,14 @@ def _time_ms(torch, fn, iters, warmup=3):
     return start.elapsed_time(end) / iters
 
 
-def _check(kernel, out, ref, dtype):
+def _check(kernel, out, ref, dtype, scale=1.0):
     """(max abs error, relative bias, ok) of ``out`` against ``ref``,
-    compared in f32."""
+    compared in f32; the tolerance is ``TOL * scale``."""
     ref = ref.float()
     err = out.float() - ref
     max_err = err.abs().max().item()
     bias = ((err * ref.sign()).mean() / ref.abs().mean()).item()
-    ok = max_err <= TOL[kernel, dtype] and (
+    ok = max_err <= TOL[kernel, dtype] * scale and (
         dtype == "float32" or abs(bias) <= BIAS_TOL)
     return max_err, bias, ok and math.isfinite(max_err)
 
@@ -177,6 +224,182 @@ def phase_flash(torch, res):
         launches=None, max_abs_err=err, ms=ms, plain_ms=plain_ms,
         bound_ms=bound_ms, bound_by=by, library_ms=lib_ms)
     res["flash_worst_err"] = worst
+
+
+def _grad_err(g, r):
+    """(largest |g - r|, largest |g - r| / (|r| + rms(r)), rms(g - r) /
+    rms(r), mean signed error along r over mean |r|), in f32."""
+    r = r.float()
+    e = g.float() - r
+    rms = r.square().mean().sqrt().clamp_min(1e-30)
+    return (e.abs().max().item(), (e.abs() / (r.abs() + rms)).max().item(),
+            (e.square().mean().sqrt() / rms).item(),
+            ((e * r.sign()).mean() / r.abs().mean().clamp_min(1e-30)).item())
+
+
+def _check_grads(label, kernel, dt, got, refs):
+    """Hold (dq, dk, dv) against the plain version's; returns each one's
+    (largest abs error, rms error over rms(ref))."""
+    elem_tol, rms_tol = GRAD_TOL[kernel, dt]
+    errs = {}
+    for name, g, r in zip(("dq", "dk", "dv"), got, refs):
+        err, elem, rms, bias = _grad_err(g, r)
+        abs_tol = TOL[kernel, dt] * max(1.0, r.float().abs().max().item())
+        ok = (err <= abs_tol and elem <= elem_tol and rms <= rms_tol
+              and (dt == "float32" or abs(bias) <= BIAS_TOL))
+        _log(f"  {label} {name}: max_abs_err={err:.3e} (tol {abs_tol:.3g}"
+             f" = {TOL[kernel, dt]:g} x max(1, max |ref|)) elementwise="
+             f"{elem:.3e} (tol {elem_tol:g}) rms={rms:.3e} (tol "
+             f"{rms_tol:g}) bias={bias:.2e}"
+             f"{'' if dt == 'float32' else f' (tol {BIAS_TOL:g})'} "
+             f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"flash backward {name} disagrees: {label}")
+        errs[name] = (err, rms)
+    return errs
+
+
+def phase_flash_bwd(torch, res):
+    from paddle_tpu_torch.kernels import flash_attention as fa
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(4)
+    randn = lambda *shape: torch.randn(*shape, device=dev,  # noqa: E731
+                                       generator=gen)
+    cases = []      # (dtype, B, Sq, Sk, N, Nkv, D, q_offset)
+    for dt in ("bfloat16", "float32"):
+        for s in (256, 512, 1024):
+            cases.append((dt, 1, s, s, 8, 8, 128, None))
+        cases += [(dt, 1, 233, 233, 8, 8, 128, None),
+                  (dt, 1, 512, 512, 8, 4, 128, None),
+                  (dt, 1, 512, 512, 16, 16, 64, None),
+                  (dt, 1, 256, 768, 8, 8, 128, 512)]
+    for dt, b, sq, sk, n, nkv, d, off in cases:
+        dtype = getattr(torch, dt)
+        q, do = (randn(b, sq, n, d).to(dtype) for _ in range(2))
+        k, v = (randn(b, sk, nkv, d).to(dtype) for _ in range(2))
+        o, lse = fa.flash_attention_fwd(q, k, v, True, q_offset=off)
+        n0 = (fa.dq_launches, fa.dkv_launches)
+        got = fa.flash_attention_bwd(q, k, v, o, lse, do, True, q_offset=off)
+        torch.cuda.synchronize()
+        if (fa.dq_launches, fa.dkv_launches) != (n0[0] + 1, n0[1] + 1):
+            raise AssertionError("backward kernels did not launch once each")
+        refs = fa.flash_attention_bwd_reference(q, k, v, o, lse, do, True,
+                                                q_offset=off)
+        label = (f"flash_attention_bwd {dt} B={b} Sq={sq} Sk={sk} nh={n} "
+                 f"nkv={nkv} d={d} causal q_offset={off}")
+        _log(label)
+        _check_grads("kernels vs plain", "flash_bwd", dt, got, refs)
+
+    # the autograd Function against autograd of the plain forward
+    for dt in ("bfloat16", "float32"):
+        dtype = getattr(torch, dt)
+        q, do = (randn(1, 512, 8, 128).to(dtype) for _ in range(2))
+        k, v = (randn(1, 512, 4, 128).to(dtype) for _ in range(2))
+        leaves = [t.requires_grad_() for t in (q, k, v)]
+        got = torch.autograd.grad(
+            fa.flash_attention_bshd(*leaves, causal=True), leaves, do)
+        refs = torch.autograd.grad(
+            fa.flash_attention_reference(*leaves, causal=True)[0], leaves, do)
+        _log(f"flash_attention_bshd autograd {dt} S=512 nh=8 nkv=4 d=128")
+        _check_grads("Function vs autograd of the plain forward",
+                     "flash_autograd", dt, got, refs)
+
+    # the training shape, on the q/k/v views of one fused [B, S, 3, N, D]
+    # projection as gpt_block passes them: the forward and the backward
+    # wrapper against their plain versions, then each kernel's time
+    b, s, n, d = TRAIN_B, TRAIN_S, 8, 128
+    qkv = randn(b, s, 3, n, d).to(torch.bfloat16)
+    q, k, v = qkv.unbind(2)
+    do = randn(b, s, n, d).to(torch.bfloat16)
+    o, lse = fa.flash_attention_fwd(q, k, v, True)
+    o_ref, lse_ref = fa.flash_attention_reference(q, k, v, True)
+    err, bias, ok = _check("flash", o, o_ref, "bfloat16")
+    lse_err = (lse - lse_ref).abs().max().item()
+    ok = ok and lse_err <= 1e-3
+    _log(f"flash_attention_fwd bfloat16 B={b} S={s} nh={n} d={d} causal, "
+         f"strided q/k/v views of a fused QKV (the training shape): "
+         f"max_abs_err={err:.3e} bias={bias:.2e} "
+         f"({_tol_text('flash', 'bfloat16')}) lse_err={lse_err:.3e} "
+         f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("flash forward disagrees at the training shape")
+    del o_ref, lse_ref
+    got = fa.flash_attention_bwd(q, k, v, o, lse, do, True)
+    refs = fa.flash_attention_bwd_reference(q, k, v, o, lse, do, True)
+    _log(f"flash_attention_bwd bfloat16 B={b} S={s} nh={n} d={d} causal, "
+         f"the same views (the training shape)")
+    errs = _check_grads("kernels vs plain", "flash_bwd", "bfloat16", got,
+                        refs)
+    # the control: no rounding of P or dS, which the rms limit must refuse
+    ctl = [t.to(torch.bfloat16) for t in fa.flash_attention_bwd_reference(
+        q.float(), k.float(), v.float(), o.float(), lse, do.float(), True)]
+    rms_tol = GRAD_TOL["flash_bwd", "bfloat16"][1]
+    ctl_rms = {name: _grad_err(c, r)[2]
+               for name, c, r in zip(("dq", "dk", "dv"), ctl, refs)}
+    _log("  control (plain backward without the P and dS rounding) vs "
+         "plain: rms " + ", ".join(f"{name} {x:.3e}" for name, x in
+                                  ctl_rms.items())
+         + f" (must exceed the limit {rms_tol:g})")
+    if min(ctl_rms.values()) <= rms_tol:
+        raise AssertionError("the bf16 rms limit does not tell the rounding "
+                             "points apart")
+    res["flash_bwd_control_rms"] = ctl_rms
+    del refs, got, ctl
+    scale = 1.0 / math.sqrt(d)
+    fwd_ms = _time_ms(torch, lambda: fa.flash_attention_fwd(q, k, v, True),
+                      20)
+    _, delta = fa._launch_dq(q, k, v, o, lse, do, True, scale, 0)
+    dq_ms = _time_ms(torch, lambda: fa._launch_dq(
+        q, k, v, o, lse, do, True, scale, 0), 20)
+    dkv_ms = _time_ms(torch, lambda: fa._launch_dkv(
+        q, k, v, do, lse, delta, True, scale, 0), 20)
+    plain_ms = _time_ms(torch, lambda: fa.flash_attention_bwd_reference(
+        q, k, v, o, lse, do, True), 5, warmup=1)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_()
+                  for t in (q, k, v))
+    dot = do.transpose(1, 2).contiguous()
+    sdpa_fwd_ms = _time_ms(torch, lambda: sdpa(qt, kt, vt, is_causal=True),
+                           20)
+    sdpa_both_ms = _time_ms(torch, lambda: torch.autograd.grad(
+        sdpa(qt, kt, vt, is_causal=True), (qt, kt, vt), dot), 20)
+    lib_ms = sdpa_both_ms - sdpa_fwd_ms
+    pairs = s * (s + 1) // 2 * b * n      # causal (query, key) pairs
+    tensor = q.numel() * q.element_size()
+    rows = b * n * s * 4                  # one f32 per query row
+    dq_flops = 3 * 2 * d * pairs + 2 * d * b * n * s       # + Delta
+    dq_bytes = 5 * tensor + rows + tensor + rows   # q k v o dO lse | dq Delta
+    dkv_flops = 4 * 2 * d * pairs
+    dkv_bytes = 4 * tensor + 2 * rows + 2 * tensor  # q k v dO lse Delta | dk dv
+    out = {}
+    for key, name, ms, flops, nbytes, err in (
+            ("flash_bwd_dq", "flash_attention_bwd_dq", dq_ms, dq_flops,
+             dq_bytes, errs["dq"][0]),
+            ("flash_bwd_dkv", "flash_attention_bwd_dkv", dkv_ms, dkv_flops,
+             dkv_bytes, max(errs["dk"][0], errs["dv"][0]))):
+        bound_ms, by = _bound(flops, nbytes, "bfloat16")
+        _log(f"{name} bf16 B={b} S={s} nh={n} d={d} causal: kernel "
+             f"{ms:.4f} ms, bound {bound_ms:.5f} ms ({by}: "
+             f"{flops / 1e9:.3f} GFLOP, {nbytes / 1e6:.3f} MB), "
+             f"{flops / ms / 1e9:.2f} TFLOP/s")
+        out[key] = dict(
+            name=name, route="cuda",
+            source="paddle_tpu_torch/csrc/flash_attention_bwd.cu",
+            replaces=("paddle_tpu/kernels/flash_attention.py:238"
+                      if key == "flash_bwd_dq" else
+                      "paddle_tpu/kernels/flash_attention.py:283"),
+            launches=None, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+            bound_ms=bound_ms, bound_by=by, library_ms=lib_ms)
+    fwd_bound, fwd_by = _bound(4 * d * pairs, 4 * tensor + rows, "bfloat16")
+    _log(f"flash_attention_fwd bf16 B={b} S={s} nh={n} d={d} causal, the "
+         f"training shape: kernel {fwd_ms:.4f} ms, bound {fwd_bound:.5f} ms "
+         f"({fwd_by})")
+    _log(f"flash backward bf16 at the training shape: dq + dkv kernels "
+         f"{dq_ms + dkv_ms:.4f} ms; plain backward (dq, dk, dv) "
+         f"{plain_ms:.4f} ms; SDPA backward (autograd.grad of "
+         f"F.scaled_dot_product_attention(is_causal=True), less its "
+         f"forward {sdpa_fwd_ms:.4f} ms) {lib_ms:.4f} ms")
+    res.update(out)
 
 
 def phase_paged(torch, res):
@@ -412,6 +635,10 @@ def _device_time(torch, fn):
 def _kernel_group(name):
     if "flash_fwd_kernel" in name:
         return "flash_attention_fwd"
+    if "flash_bwd_dq_kernel" in name:
+        return "flash_attention_bwd_dq"
+    if "flash_bwd_dkv_kernel" in name:
+        return "flash_attention_bwd_dkv"
     if "paged_decode_kernel" in name:
         return "paged_attention_decode"
     if any(s in name.lower() for s in ("gemm", "gemv", "xmma", "cutlass",
@@ -419,7 +646,7 @@ def _kernel_group(name):
         return "matmul (cuBLAS)"
     if name.startswith("Memcpy") or name.startswith("Memset"):
         return "memcpy/memset"
-    return "other (elementwise, layer norm, index_copy, argmax)"
+    return "other (elementwise and reductions)"
 
 
 def _profile_engine(torch, np, eng, cfg):
@@ -551,6 +778,186 @@ def phase_serving(torch, np, res):
          f"bf16 tokens equal to f32: {agree}/{checked}")
 
 
+# ----------------------------------------------------------------- phase 4
+
+def _flash_counts():
+    from paddle_tpu_torch.kernels import flash_attention as fa
+    return fa.launches, fa.dq_launches, fa.dkv_launches
+
+
+def _train_main(torch, np, res):
+    """The training main path at GPT-345M width, bf16, remat "dots"."""
+    from paddle_tpu_torch.kernels import flash_attention as fa
+    from paddle_tpu_torch.models.gpt import (
+        GPTForPretraining, GPTHybridTrainStep, GPTModel, gpt_345m_config,
+        model_flops_per_token)
+    cfg = gpt_345m_config(max_position_embeddings=1024, num_heads=8)
+    model = GPTForPretraining(GPTModel(cfg, seed=0, device="cuda"))
+    step = GPTHybridTrainStep(model, cfg, None, n_micro=1, lr=1e-4,
+                              remat="dots", compute_dtype="bfloat16")
+    rng = np.random.default_rng(0)
+    ids = rng.integers(0, cfg.vocab_size, (TRAIN_B, TRAIN_S)).astype(
+        np.int32)
+    labels = np.roll(ids, -1, axis=1).astype(np.int32)
+    _log(f"training: GPT-345M layers={cfg.num_layers} hidden="
+         f"{cfg.hidden_size} heads={cfg.num_heads}x{cfg.head_dim} vocab="
+         f"{cfg.vocab_size}, B={TRAIN_B} S={TRAIN_S}, bf16 compute, f32 "
+         f"masters and moments, remat='dots', AdamW lr=1e-4")
+    losses = [step(ids, labels).item() for _ in range(WARMUP_STEPS)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fa.launches = fa.dq_launches = fa.dkv_launches = 0
+    times, per_step = [], []
+    for _ in range(TIMED_STEPS):
+        c0 = _flash_counts()
+        t0 = time.perf_counter()
+        losses.append(step(ids, labels).item())
+        times.append(time.perf_counter() - t0)
+        per_step.append([b - a for a, b in zip(c0, _flash_counts())])
+    counts = _flash_counts()
+    peak = torch.cuda.max_memory_allocated()
+    L = cfg.num_layers
+    want = [2 * L, L, L]     # forward + recompute under "dots"; dQ; dK/dV
+    tokens_per_s = TRAIN_B * TRAIN_S * TIMED_STEPS / sum(times)
+    fpt = model_flops_per_token(cfg, TRAIN_S)[0]
+    e2e = dict(tokens_per_s=tokens_per_s,
+               step_p50_ms=_pct(times, 0.5) * 1e3,
+               step_ms=[t * 1e3 for t in times],
+               mfu=tokens_per_s * fpt / PEAK_FLOPS["bfloat16"],
+               flops_per_token=fpt,
+               max_memory_allocated_bytes=peak, losses=losses,
+               launches_per_step=per_step,
+               launches=dict(zip(("flash_fwd", "flash_bwd_dq",
+                                  "flash_bwd_dkv"), counts)))
+    _log(f"training bf16, {TIMED_STEPS} timed steps after {WARMUP_STEPS} "
+         f"warm-up: {tokens_per_s:.1f} tokens/s, step p50 "
+         f"{e2e['step_p50_ms']:.2f} ms (steps "
+         f"{', '.join(f'{t:.2f}' for t in e2e['step_ms'])} ms), MFU "
+         f"{e2e['mfu']:.4f} of {PEAK_FLOPS['bfloat16']:.3g} FLOP/s "
+         f"({fpt:.4g} FLOP/token), peak memory {peak} bytes; on "
+         f"{res.get('nvidia_smi')}")
+    _log(f"training losses (warm-up, then timed): "
+         f"{', '.join(f'{x:.6f}' for x in losses)}")
+    _log(f"training flash launches per step (fwd, dq, dkv): {per_step}; "
+         f"want {want} each")
+    res["training_bf16"] = e2e
+    if any(c != want for c in per_step):
+        raise AssertionError(f"launches per step {per_step}, want {want}")
+    if not all(math.isfinite(x) for x in losses) or losses[-1] >= losses[0]:
+        raise AssertionError(f"losses not finite or not falling: {losses}")
+
+    # where a step's time goes: forward + backward against AdamW (CUDA
+    # events), then one step under the profiler by kernel group
+    ev = lambda: torch.cuda.Event(enable_timing=True)    # noqa: E731
+    e0, e1, e2 = ev(), ev(), ev()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    e0.record()
+    _, grads = step.loss_and_grads(ids, labels)
+    e1.record()
+    t1 = time.perf_counter()
+    step._t += 1
+    step._adamw(grads, 1e-4, step._t)
+    e2.record()
+    e2.synchronize()
+    t2 = time.perf_counter()
+    split = dict(fwd_bwd_device_ms=e0.elapsed_time(e1),
+                 adamw_device_ms=e1.elapsed_time(e2),
+                 fwd_bwd_host_issue_ms=(t1 - t0) * 1e3,
+                 step_wall_ms=(t2 - t0) * 1e3)
+    del grads
+    _log(f"training step split (CUDA events): forward + backward "
+         f"{split['fwd_bwd_device_ms']:.2f} ms, AdamW "
+         f"{split['adamw_device_ms']:.2f} ms; host issue of forward + "
+         f"backward {split['fwd_bwd_host_issue_ms']:.2f} ms; wall "
+         f"{split['step_wall_ms']:.2f} ms")
+    wall, by_name = _device_time(torch, lambda: step(ids, labels).item())
+    groups = {}
+    for name, us in by_name.items():
+        groups[_kernel_group(name)] = groups.get(_kernel_group(name), 0.0) \
+            + us
+    busy_us = sum(by_name.values())
+    split.update(
+        profiled_wall_ms=wall * 1e3,
+        profiled_device_ms=busy_us / 1e3 if by_name else None,
+        busy_share=busy_us / 1e6 / wall if by_name else None,
+        device_ms_by_group={g: us / 1e3 for g, us in sorted(
+            groups.items(), key=lambda kv: -kv[1])})
+    res["training_profile"] = split
+    if by_name:
+        _log(f"profile one training step: wall {wall * 1e3:.2f} ms, device "
+             f"busy {busy_us / 1e3:.2f} ms (share {split['busy_share']:.3f}); "
+             + ", ".join(f"{g} {ms:.3f} ms" for g, ms in
+                         split["device_ms_by_group"].items()))
+        for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:10]:
+            _log(f"  {us / 1e3:9.3f} ms  {name[:100]}")
+    else:
+        _log("profile one training step: device time not measured (the "
+             "profiler saw no CUDA activity)")
+
+
+def _grad_rel_err(got, ref):
+    """The largest |a - b| / |b| (norms) over the leaves of two gradient
+    trees, and the name of its leaf."""
+    flat = lambda t: {**{f"blocks.{k}": v for k, v in t["blocks"].items()},
+                      **{k: v for k, v in t.items() if k != "blocks"}}
+    got, ref = flat(got), flat(ref)
+    worst, where = 0.0, None
+    for key, r in ref.items():
+        rel = ((got[key].float() - r.float()).norm()
+               / r.float().norm().clamp_min(1e-30)).item()
+        if not math.isfinite(rel) or rel > worst:
+            worst, where = rel, key
+    return worst, where
+
+
+def _train_f32_check(torch, np, res):
+    """f32 trainer at full width, 4 layers, B = 2: the kernel path against
+    the plain attention path, and remat "dots" against no remat."""
+    from paddle_tpu_torch.models.gpt import (
+        GPTForPretraining, GPTHybridTrainStep, GPTModel, gpt_345m_config)
+    cfg = gpt_345m_config(max_position_embeddings=1024, num_heads=8,
+                          num_layers=4)
+    base = GPTForPretraining(GPTModel(cfg, seed=1, device="cuda"))
+    rng = np.random.default_rng(1)
+    ids = rng.integers(0, cfg.vocab_size, (2, TRAIN_S)).astype(np.int32)
+    labels = np.roll(ids, -1, axis=1).astype(np.int32)
+
+    def run(use_flash, remat):
+        step = GPTHybridTrainStep(copy.deepcopy(base), cfg, None, lr=1e-4,
+                                  remat=remat, use_flash=use_flash)
+        _, grads = step.loss_and_grads(ids, labels)
+        losses = [step(ids, labels).item() for _ in range(3)]
+        return grads, losses
+
+    runs = {"plain": run(False, False), "kernel": run(True, False),
+            "kernel_dots": run(True, "dots")}
+    out = {}
+    for what, a, b in (("kernel_vs_plain", "kernel", "plain"),
+                       ("dots_vs_none", "kernel_dots", "kernel")):
+        rel, where = _grad_rel_err(runs[a][0], runs[b][0])
+        dloss = max(abs(x - y) for x, y in zip(runs[a][1], runs[b][1]))
+        ok = rel <= GRAD_REL_TOL[what] and dloss <= TRAIN_LOSS_TOL
+        out[what] = dict(grad_rel_err=rel, worst_leaf=where,
+                         loss_abs_err=dloss, losses=runs[a][1],
+                         ref_losses=runs[b][1])
+        _log(f"training f32 4 layers B=2 S={TRAIN_S}, {a} vs {b}: first-step "
+             f"gradients max |a-b|/|b| = {rel:.3e} ({where}; tol "
+             f"{GRAD_REL_TOL[what]:g}), losses of 3 steps "
+             f"{[round(x, 6) for x in runs[a][1]]} vs "
+             f"{[round(x, 6) for x in runs[b][1]]}, max diff {dloss:.3e} "
+             f"(tol {TRAIN_LOSS_TOL:g}) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"f32 trainer check {what} failed")
+    res["training_f32"] = out
+
+
+def phase_training(torch, np, res):
+    _train_main(torch, np, res)
+    torch.cuda.empty_cache()
+    _train_f32_check(torch, np, res)
+
+
 # --------------------------------------------------------------------- main
 
 def main(argv=None) -> int:
@@ -570,7 +977,7 @@ def main(argv=None) -> int:
     failed = []
     smi = None
     try:
-        smi = _nvidia_smi()
+        smi = res["nvidia_smi"] = _nvidia_smi()
         _log(f"nvidia-smi: {smi}")
     except (OSError, subprocess.SubprocessError) as e:
         failed.append("nvidia-smi")
@@ -582,8 +989,10 @@ def main(argv=None) -> int:
          f"{torch.get_num_threads()} torch threads")
     phases = [("build", lambda: phase_build(res)),
               ("flash", lambda: phase_flash(torch, res)),
+              ("flash_bwd", lambda: phase_flash_bwd(torch, res)),
               ("paged", lambda: phase_paged(torch, res)),
-              ("serving", lambda: phase_serving(torch, np, res))]
+              ("serving", lambda: phase_serving(torch, np, res)),
+              ("training", lambda: phase_training(torch, np, res))]
     for name, fn in phases:
         t0 = time.perf_counter()
         try:
@@ -602,9 +1011,21 @@ def main(argv=None) -> int:
     if failed:
         _log(f"chip_smoke: failed phases {failed}")
         return 1
+    # launches: each kernel's count over its main path's counted run (the
+    # first bf16 serving run; the five timed training steps), by path
+    train = res["training_bf16"]["launches"]
     res["flash"]["launches"] = res["serving_bf16"]["flash_launches"]
+    res["flash"]["launches_by_path"] = dict(
+        serving=res["serving_bf16"]["flash_launches"],
+        training=train["flash_fwd"])
+    for key in ("flash_bwd_dq", "flash_bwd_dkv"):
+        res[key]["launches"] = train[key]
+        res[key]["launches_by_path"] = dict(training=train[key])
     res["paged"]["launches"] = res["serving_bf16"]["paged_launches"]
-    print(json.dumps({"kernels": [res["flash"], res["paged"]]}))
+    res["paged"]["launches_by_path"] = dict(
+        serving=res["serving_bf16"]["paged_launches"])
+    print(json.dumps({"kernels": [res[k] for k in (
+        "flash", "flash_bwd_dq", "flash_bwd_dkv", "paged")]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -43,6 +43,16 @@ _SIGNATURES = {
                                 _I, _I, _I,                  # v strides
                                 _I, _I, _I,                  # o strides
                                 _I, _I, _F, _P],             # causal q_offset scale stream
+    "ptt_flash_attention_bwd_dq": [_P, _P, _P, _P, _P, _P,   # q k v o do lse
+                                   _P, _P,                   # delta dq
+                                   _I, _I, _I, _I, _I, _I, _I,  # dtype B Nq Nkv Sq Sk D
+                                   *[_I] * 18,               # q k v o do dq strides
+                                   _I, _I, _F, _P],          # causal q_offset scale stream
+    "ptt_flash_attention_bwd_dkv": [_P, _P, _P, _P, _P, _P,  # q k v do lse delta
+                                    _P, _P,                  # dk dv
+                                    _I, _I, _I, _I, _I, _I, _I,  # dtype B Nq Nkv Sq Sk D
+                                    *[_I] * 18,              # q k v do dk dv strides
+                                    _I, _I, _F, _P],         # causal q_offset scale stream
     "ptt_paged_attention_decode": [_P, _P, _P, _P, _P, _P,   # q kp vp pt sl out
                                    _I, _I, _I, _I, _I, _I,   # dtype B nh nkv D ps
                                    _I, _I, _I,               # pages_per_seq q_sb q_sh

@@ -1,19 +1,25 @@
-"""FlashAttention-2 forward: a hand-written CUDA kernel and its plain version.
+"""FlashAttention-2: hand-written CUDA kernels and their plain versions.
 
-Counterpart of ``paddle_tpu/kernels/flash_attention.py`` (forward only;
-the backward kernels come with the training slice). The kernel is
-``csrc/flash_attention_fwd.cu``; it replaces the Pallas ``_fwd_kernel``.
+Counterpart of ``paddle_tpu/kernels/flash_attention.py``. Three kernels
+replace the three Pallas kernels there: ``csrc/flash_attention_fwd.cu``
+(``_fwd_kernel``) and the dQ and dK/dV passes of
+``csrc/flash_attention_bwd.cu`` (``_bwd_dq_kernel``, ``_bwd_dkv_kernel``).
+One ``torch.autograd.Function`` joins forward and backward, as the JAX
+``_flash`` ``custom_vjp`` does: it saves ``q, k, v, o, lse`` and its
+backward recomputes P from the LSE.
 
 Layout contract, as in the JAX package: ``flash_attention_bshd`` takes
 ``[B, S, N, D]`` (k/v ``[B, Sk, Nkv, D]``, Nkv dividing N for MQA/GQA) and
 ``flash_attention`` takes head-major ``[BN, S, D]`` (k/v ``[BN // g, Sk,
-D]``). The kernel reads strided views (unit stride along D only), so the
+D]``). The kernels read strided views (unit stride along D only), so the
 q/k/v slices of a fused QKV projection go in without a copy, and ragged
-lengths are masked inside the kernel: the TPU wrapper's pad-to-128 copies
+lengths are masked inside the kernels: the TPU wrapper's pad-to-128 copies
 are not ported.
 
-Dispatch: a CPU tensor takes :func:`flash_attention_reference`; a CUDA
-tensor launches the kernel or raises. ``launches`` counts kernel launches.
+Dispatch: a CPU tensor takes the plain version
+(:func:`flash_attention_reference`, :func:`flash_attention_bwd_reference`);
+a CUDA tensor launches the kernel or raises. ``launches``,
+``dq_launches`` and ``dkv_launches`` count kernel launches.
 """
 from __future__ import annotations
 
@@ -24,15 +30,19 @@ import torch
 from . import _build
 
 __all__ = ["flash_attention", "flash_attention_bshd", "flash_attention_fwd",
-           "flash_attention_reference", "supported", "KERNEL_HEAD_DIMS"]
+           "flash_attention_bwd", "flash_attention_reference",
+           "flash_attention_bwd_reference", "supported", "KERNEL_HEAD_DIMS"]
 
 MIN_SEQ = 64                 # the JAX gate's MIN_BLOCK // 2 profit threshold
 KERNEL_HEAD_DIMS = (64, 128)
 _NEG_INF = -1e30
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
-# kernel launches since the counter was last set to 0
+# kernel launches since each counter was last set to 0: the forward, the
+# dQ pass and the dK/dV pass
 launches = 0
+dq_launches = 0
+dkv_launches = 0
 
 
 def supported(q_shape, k_shape=None, v_shape=None, causal=False,
@@ -97,6 +107,22 @@ def _check_shapes(q, k, v, causal, q_offset) -> int:
     return offset
 
 
+def _scores(q, k, causal, scale, offset):
+    """f32 ``scale * q k^T`` as ``[B, N, Sq, Sk]`` with the kernels' -1e30
+    causal mask; k is ``[B, Sk, N, D]`` (KV heads already repeated)."""
+    sq, sk = q.shape[1], k.shape[1]
+    s = torch.einsum("bsnd,btnd->bnst", q.float(), k.float()) * scale
+    if causal:
+        row = offset + torch.arange(sq, device=q.device)[:, None]
+        col = torch.arange(sk, device=q.device)[None, :]
+        s = s.masked_fill(col > row, _NEG_INF)
+    return s
+
+
+def _repeat_kv(t, g):
+    return t.repeat_interleave(g, dim=2) if g > 1 else t
+
+
 def flash_attention_reference(q, k, v, causal=False, scale=None,
                               q_offset=None):
     """Plain PyTorch version of the kernel on ``[B, S, N, D]``: dense
@@ -104,24 +130,46 @@ def flash_attention_reference(q, k, v, causal=False, scale=None,
     ``q_offset``), f32 scores and softmax, P rounded to V's dtype before
     P.V. Returns ``(o [B, Sq, N, D] in q's dtype, lse [B, N, Sq] f32)``."""
     offset = _check_shapes(q, k, v, causal, q_offset)
-    b, sq, n, d = q.shape
-    sk, nkv = k.shape[1], k.shape[2]
+    g = q.shape[2] // k.shape[2]
     if scale is None:
-        scale = 1.0 / math.sqrt(d)
-    if n != nkv:
-        k = k.repeat_interleave(n // nkv, dim=2)
-        v = v.repeat_interleave(n // nkv, dim=2)
-    s = torch.einsum("bsnd,btnd->bnst", q.float(), k.float()) * scale
-    if causal:
-        row = offset + torch.arange(sq, device=q.device)[:, None]
-        col = torch.arange(sk, device=q.device)[None, :]
-        s = s.masked_fill(col > row, _NEG_INF)
+        scale = 1.0 / math.sqrt(q.shape[-1])
+    k, v = _repeat_kv(k, g), _repeat_kv(v, g)
+    s = _scores(q, k, causal, scale, offset)
     m = s.amax(-1, keepdim=True)
     p = torch.exp(s - m)
     l = p.sum(-1, keepdim=True)
     o = torch.einsum("bnst,btnd->bnsd", p.to(v.dtype).float(), v.float()) / l
     lse = (m + torch.log(l))[..., 0]
     return o.transpose(1, 2).to(q.dtype), lse
+
+
+def flash_attention_bwd_reference(q, k, v, o, lse, do, causal=False,
+                                  scale=None, q_offset=None):
+    """Plain PyTorch version of the two backward kernels, the math of the
+    JAX ``_bwd`` written densely: Delta = rowsum(dO * O) in f32; P =
+    exp(S - LSE) from the f32 scores; dV = P^T dO with P rounded to dO's
+    dtype; dS = P * (dP - Delta) * scale rounded to the input dtype; dQ =
+    dS K and dK = dS^T Q accumulated in f32; under GQA dK/dV summed over
+    the g query heads of each KV head. ``lse`` is ``[B, N, Sq]`` f32, as
+    the forward returns it. Returns ``(dq, dk, dv)`` in the input dtype."""
+    offset = _check_shapes(q, k, v, causal, q_offset)
+    b, sq, n, d = q.shape
+    sk, nkv = k.shape[1], k.shape[2]
+    g = n // nkv
+    if scale is None:
+        scale = 1.0 / math.sqrt(d)
+    delta = (do.float() * o.float()).sum(-1).transpose(1, 2)   # [B, N, Sq]
+    kr, vr = _repeat_kv(k, g), _repeat_kv(v, g)
+    p = torch.exp(_scores(q, kr, causal, scale, offset) - lse[..., None])
+    dv = torch.einsum("bnst,bsnd->btnd", p.to(do.dtype).float(), do.float())
+    dp = torch.einsum("bsnd,btnd->bnst", do.float(), vr.float())
+    ds = (p * (dp - delta[..., None]) * scale).to(q.dtype).float()
+    dq = torch.einsum("bnst,btnd->bsnd", ds, kr.float())
+    dk = torch.einsum("bnst,bsnd->btnd", ds, q.float())
+    if g > 1:
+        dk = dk.reshape(b, sk, nkv, g, d).sum(3)
+        dv = dv.reshape(b, sk, nkv, g, d).sum(3)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
 def _check_cuda(ts):
@@ -170,7 +218,8 @@ def _launch(q, k, v, causal, scale, offset):
 
 def flash_attention_fwd(q, k, v, causal=False, scale=None, q_offset=None):
     """``[B, S, N, D]`` forward returning ``(o, lse)``: the kernel for
-    CUDA tensors, the plain version for CPU tensors."""
+    CUDA tensors, the plain version for CPU tensors. Not differentiable:
+    :func:`flash_attention_bshd` is."""
     if all(t.device.type == "cpu" for t in (q, k, v)):
         return flash_attention_reference(q, k, v, causal, scale, q_offset)
     if not all(t.is_cuda for t in (q, k, v)):
@@ -182,9 +231,108 @@ def flash_attention_fwd(q, k, v, causal=False, scale=None, q_offset=None):
     return _launch(q, k, v, causal, scale, offset)
 
 
+def _check_bwd(q, k, v, o, lse, do):
+    _check_cuda((q, k, v, o, do))
+    b, sq, n, _ = q.shape
+    if o.shape != q.shape or do.shape != q.shape:
+        raise ValueError(f"o {tuple(o.shape)} and do {tuple(do.shape)} must "
+                         f"have q's shape {tuple(q.shape)}")
+    if lse.shape != (b, n, sq) or lse.dtype != torch.float32 \
+            or lse.device != q.device or not lse.is_contiguous():
+        raise ValueError(f"lse must be a contiguous float32 [B, N, Sq] = "
+                         f"{(b, n, sq)} tensor on {q.device}")
+    if b * n >= 65536:
+        raise ValueError(f"batch*heads {b * n} exceeds the grid limit")
+
+
+def _launch_dq(q, k, v, o, lse, do, causal, scale, offset):
+    """The dQ kernel on checked operands; returns ``(dq, delta)`` with
+    ``delta = rowsum(do * o)`` ``[B, N, Sq]`` f32, which the dK/dV kernel
+    reads."""
+    global dq_launches
+    b, sq, n, d = q.shape
+    dq = torch.empty((b, sq, n, d), dtype=q.dtype, device=q.device)
+    delta = torch.empty((b, n, sq), dtype=torch.float32, device=q.device)
+    with torch.cuda.device(q.device):
+        err = _build.load_library().ptt_flash_attention_bwd_dq(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+            _DTYPE_CODES[q.dtype], b, n, k.shape[2], sq, k.shape[1], d,
+            *[s for t in (q, k, v, o, do, dq) for s in t.stride()[:3]],
+            int(bool(causal)), offset, float(scale),
+            torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check(err, "flash_attention_bwd_dq")
+    dq_launches += 1
+    return dq, delta
+
+
+def _launch_dkv(q, k, v, do, lse, delta, causal, scale, offset):
+    """The dK/dV kernel on checked operands (``delta`` from
+    :func:`_launch_dq`); returns ``(dk, dv)``."""
+    global dkv_launches
+    b, sq, n, d = q.shape
+    dk = torch.empty(k.shape, dtype=q.dtype, device=q.device)
+    dv = torch.empty_like(dk)
+    with torch.cuda.device(q.device):
+        err = _build.load_library().ptt_flash_attention_bwd_dkv(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            _DTYPE_CODES[q.dtype], b, n, k.shape[2], sq, k.shape[1], d,
+            *[s for t in (q, k, v, do, dk, dv) for s in t.stride()[:3]],
+            int(bool(causal)), offset, float(scale),
+            torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check(err, "flash_attention_bwd_dkv")
+    dkv_launches += 1
+    return dk, dv
+
+
+def flash_attention_bwd(q, k, v, o, lse, do, causal=False, scale=None,
+                        q_offset=None):
+    """Gradients ``(dq, dk, dv)`` of the ``[B, S, N, D]`` forward from its
+    residuals ``o`` and ``lse`` and the output gradient ``do``: the dQ
+    kernel, then the dK/dV kernel, for CUDA tensors; the plain version for
+    CPU tensors."""
+    ts = (q, k, v, o, lse, do)
+    if all(t.device.type == "cpu" for t in ts):
+        return flash_attention_bwd_reference(q, k, v, o, lse, do, causal,
+                                             scale, q_offset)
+    if not all(t.is_cuda for t in ts):
+        raise ValueError("flash attention backward runs on CUDA or CPU "
+                         "tensors, got " + ", ".join(str(t.device)
+                                                     for t in ts))
+    offset = _check_shapes(q, k, v, causal, q_offset)
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[-1])
+    if do.stride(-1) != 1:
+        do = do.contiguous()
+    _check_bwd(q, k, v, o, lse, do)
+    dq, delta = _launch_dq(q, k, v, o, lse, do, causal, scale, offset)
+    return (dq,) + _launch_dkv(q, k, v, do, lse, delta, causal, scale, offset)
+
+
+class _FlashAttention(torch.autograd.Function):
+    """The counterpart of the JAX ``_flash`` ``custom_vjp``: the forward
+    saves ``(q, k, v, o, lse)``, the backward runs both backward passes."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, scale, q_offset):
+        o, lse = flash_attention_fwd(q, k, v, causal, scale, q_offset)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.args = (causal, scale, q_offset)
+        return o
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, o, lse, do, *ctx.args)
+        return dq, dk, dv, None, None, None
+
+
 def flash_attention_bshd(q, k, v, causal=False, scale=None, q_offset=None):
-    """``[B, Sq, N, D]`` (k/v ``[B, Sk, Nkv, D]``) → ``[B, Sq, N, D]``."""
-    return flash_attention_fwd(q, k, v, causal, scale, q_offset)[0]
+    """``[B, Sq, N, D]`` (k/v ``[B, Sk, Nkv, D]``) → ``[B, Sq, N, D]``,
+    differentiable in q, k and v."""
+    return _FlashAttention.apply(q, k, v, causal, scale, q_offset)
 
 
 def flash_attention(q, k, v, causal=False, scale=None, q_offset=None):

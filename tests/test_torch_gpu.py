@@ -77,6 +77,49 @@ def test_flash_kernel_reads_strided_qkv_views():
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", sorted(FLASH_CASES))
+def test_flash_bwd_kernels_match_plain(case, dtype):
+    """The dQ and dK/dV kernels against the plain backward, from the same
+    forward residuals; each kernel launches once per call."""
+    dev = _cuda()
+    B, Sq, Sk, N, Nkv, D, causal, off = FLASH_CASES[case]
+    dt = getattr(torch, dtype)
+    q, k, v, do = (torch.from_numpy(_rand(shape, seed)).to(dev, dt)
+                   for shape, seed in (((B, Sq, N, D), 1), ((B, Sk, Nkv, D), 2),
+                                       ((B, Sk, Nkv, D), 3), ((B, Sq, N, D), 4)))
+    o, lse = tfa.flash_attention_fwd(q, k, v, causal=causal, q_offset=off)
+    n_dq, n_dkv = tfa.dq_launches, tfa.dkv_launches
+    grads = tfa.flash_attention_bwd(q, k, v, o, lse, do, causal=causal,
+                                    q_offset=off)
+    torch.cuda.synchronize()
+    assert (tfa.dq_launches, tfa.dkv_launches) == (n_dq + 1, n_dkv + 1)
+    refs = tfa.flash_attention_bwd_reference(q, k, v, o, lse, do,
+                                             causal=causal, q_offset=off)
+    for name, g, r in zip("qkv", grads, refs):
+        assert g.dtype == dt and g.shape == r.shape, name
+        torch.testing.assert_close(g.float(), r.float(), rtol=TOL[dtype],
+                                   atol=TOL[dtype], msg=f"d{name}")
+
+
+@pytest.mark.gpu
+def test_flash_function_grads_on_strided_qkv_views():
+    """Gradients through the autograd Function, whose inputs are the q/k/v
+    slices of a fused [B, S, 3, N, D] projection, against the same
+    Function on the CPU (plain forward and backward)."""
+    dev = _cuda()
+    qkv = torch.from_numpy(_rand((2, 300, 3, 8, 128), 5)).to(torch.bfloat16)
+    do = torch.from_numpy(_rand((2, 300, 8, 128), 6)).to(torch.bfloat16)
+    grads = []
+    for t, g in ((qkv.to(dev), do.to(dev)), (qkv, do)):
+        t = t.requires_grad_()
+        out = tfa.flash_attention_bshd(t[:, :, 0], t[:, :, 1], t[:, :, 2],
+                                       causal=True)
+        grads.append(torch.autograd.grad(out, t, g)[0].cpu().float())
+    torch.testing.assert_close(grads[0], grads[1], rtol=2e-2, atol=2e-2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("nkv", [8, 4])
 def test_paged_kernel_matches_plain(dtype, nkv):
     dev = _cuda()
@@ -116,6 +159,16 @@ def test_kernels_refuse_what_they_do_not_take():
             torch.zeros(1, 1, 64, device=dev), kp, kp,
             torch.ones(1, 2, dtype=torch.int64, device=dev),
             torch.ones(1, dtype=torch.int32, device=dev))
+    q = torch.randn(1, 64, 2, 96, device=dev)         # backward, head dim 96
+    lse = torch.zeros(1, 2, 64, device=dev)
+    with pytest.raises(ValueError, match="head dim"):
+        tfa.flash_attention_bwd(q, q, q, q, lse, q, causal=True)
+    q = torch.randn(1, 64, 2, 64, device=dev)
+    with pytest.raises(ValueError, match="lse"):
+        tfa.flash_attention_bwd(q, q, q, q, lse.double(), q, causal=True)
+    with pytest.raises(TypeError):
+        h = q.half()
+        tfa.flash_attention_bwd(h, h, h, h, lse, h, causal=True)
 
 
 @pytest.mark.gpu
@@ -145,3 +198,32 @@ def test_engine_on_cuda_matches_cpu():
             assert tpa.launches - p0 == cfg.num_layers * sched.steps
     for a, b in zip(*outs):
         np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.gpu
+def test_train_step_on_cuda_matches_cpu():
+    """Three f32 steps of the trainer at d = 64 (flash forward and both
+    backward kernels, remat="dots") against the same steps on the CPU;
+    per step the forward kernel runs twice per layer (forward and
+    recompute), each backward kernel once."""
+    _cuda()
+    cfg = tgpt.gpt_tiny_config(hidden_size=128, num_heads=2, num_layers=2)
+    rng = np.random.default_rng(9)
+    ids = rng.integers(0, cfg.vocab_size, (2, 128)).astype(np.int32)
+    labels = np.roll(ids, -1, axis=1)
+    cpu = tgpt.GPTForPretraining(tgpt.GPTModel(cfg, seed=0, device="cpu"))
+    losses = {}
+    for dev in ("cpu", "cuda"):
+        model = tgpt.GPTForPretraining(tgpt.GPTModel(cfg, device=dev))
+        model.load_state_dict(cpu.state_dict())
+        step = tgpt.GPTHybridTrainStep(model, cfg, lr=1e-3, remat="dots",
+                                       use_flash=True)
+        counts = (tfa.launches, tfa.dq_launches, tfa.dkv_launches)
+        losses[dev] = [step(ids, labels).item() for _ in range(3)]
+        if dev == "cuda":
+            L = cfg.num_layers
+            assert (tfa.launches - counts[0], tfa.dq_launches - counts[1],
+                    tfa.dkv_launches - counts[2]) == (6 * L, 3 * L, 3 * L)
+    # f32 on both; the sums run in other orders
+    np.testing.assert_allclose(losses["cuda"], losses["cpu"], rtol=0,
+                               atol=1e-4)

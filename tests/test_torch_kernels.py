@@ -7,6 +7,7 @@ versions by ``tests/test_torch_gpu.py`` on the card.
 """
 import math
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -181,3 +182,68 @@ def test_ctypes_signatures_match_c_entries():
         assert len(params) == len(argtypes), name
         for p, a in zip(params, argtypes):
             assert ("*" in p) == (a is _build._P), (name, p)
+
+
+# -------------------------------------------------------- flash backward
+
+# bf16: P and dS are rounded to bf16 before their products, in both
+# packages; where the two sums that feed a rounding point differ in order,
+# it can land on the other side of a tie and move a gradient element by
+# about one bf16 spacing of one term (<= 2^-8 relative). The largest such
+# move seen on these inputs is 2e-3 at |grad| <= 5.
+BWD_TOL = {"float32": dict(rtol=1e-5, atol=1e-5),
+           "bfloat16": dict(rtol=0, atol=8e-3)}
+
+
+def _jax_vjp(q, k, v, do, causal, off, dtype):
+    jd = getattr(jnp, dtype)
+    f = lambda q_, k_, v_: jfa.flash_attention_bshd(q_, k_, v_, causal=causal,
+                                                    q_offset=off)
+    _, vjp = jax.vjp(f, *(jnp.asarray(a).astype(jd) for a in (q, k, v)))
+    return [np.asarray(g.astype(jnp.float32))
+            for g in vjp(jnp.asarray(do).astype(jd))]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", sorted(FLASH_CASES))
+def test_flash_bwd_matches_jax_vjp(case, dtype):
+    """The plain backward, and the autograd Function that runs it on the
+    CPU, against ``jax.vjp`` of the JAX flash kernel (interpret mode)."""
+    q, k, v, causal, off = _flash_inputs(case)
+    do = _rand(q.shape, 13)
+    ref = _jax_vjp(q, k, v, do, causal, off, dtype)
+    td = getattr(torch, dtype)
+    tq, tk, tv, tdo = (torch.from_numpy(a).to(td) for a in (q, k, v, do))
+    o, lse = tfa.flash_attention_fwd(tq, tk, tv, causal, q_offset=off)
+    plain = tfa.flash_attention_bwd(tq, tk, tv, o, lse, tdo, causal,
+                                    q_offset=off)
+    leaves = [t.requires_grad_() for t in (tq, tk, tv)]
+    out = tfa.flash_attention_bshd(*leaves, causal=causal, q_offset=off)
+    auto = torch.autograd.grad(out, leaves, tdo)
+    for name, p, a, r in zip("qkv", plain, auto, ref):
+        assert p.dtype == td, name
+        torch.testing.assert_close(a, p, rtol=0, atol=0)
+        np.testing.assert_allclose(p.float().numpy(), r, **BWD_TOL[dtype],
+                                   err_msg=f"d{name}")
+
+
+def test_flash_head_major_is_differentiable():
+    q, k, v, _, _ = _flash_inputs("gqa_causal")
+    do = torch.from_numpy(_rand(q.shape, 14))
+    t4 = [torch.from_numpy(a).requires_grad_() for a in (q, k, v)]
+    ref = torch.autograd.grad(tfa.flash_attention_bshd(*t4, causal=True),
+                              t4, do)
+    t3 = [torch.from_numpy(a)[0].transpose(0, 1).contiguous()
+          .requires_grad_() for a in (q, k, v)]
+    out = tfa.flash_attention(*t3, causal=True)
+    got = torch.autograd.grad(out, t3, do[0].transpose(0, 1))
+    for g, r in zip(got, ref):
+        torch.testing.assert_close(g.transpose(0, 1), r[0], rtol=0, atol=0)
+
+
+def test_flash_bwd_refuses_mixed_devices():
+    q, k, v, causal, off = _flash_inputs("causal_d64")
+    t = [torch.from_numpy(a) for a in (q, k, v)]
+    o, lse = tfa.flash_attention_fwd(*t, causal=True)
+    with pytest.raises(ValueError, match="CUDA or CPU"):
+        tfa.flash_attention_bwd(*t, o, lse.to("meta"), o, causal=True)
