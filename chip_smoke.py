@@ -2,7 +2,7 @@
 
     python3 chip_smoke.py [--json-out PATH]
 
-Six phases, one result per line:
+Ten phases, one result per line:
 
 1. device and build — the card's name and power limit, and the build of
    every CUDA kernel from ``paddle_tpu_torch/csrc`` with nvcc for sm_90a;
@@ -16,7 +16,14 @@ Six phases, one result per line:
    gradient limit tells the kernels' rounding points from none. Each
    kernel's time (CUDA events), its plain
    version's time, its bound and one PyTorch library call as a yardstick;
-3. ``serving`` — the serving main path at the full width of GPT-345M (24
+3. ``paged_prefill``, ``int8`` — the ragged chunk-prefill kernel and the
+   int8 dequant-matmul kernel against their plain versions in bf16 and
+   f32 (chunk offsets 0, mid-page and late, a padded chunk, d = 64 and
+   128, two sequences sharing prefix pages; the five GPT-345M weight
+   shapes at M = 1, 8 and 256 and odd sizes), each timed at its serving
+   shape (with the stream held, so the host's issue does not enter)
+   against its bound and a PyTorch yardstick;
+4. ``serving`` — the serving main path at the full width of GPT-345M (24
    layers, hidden 1024, 8 heads of 128, vocab 50304, random weights from a
    seed): eight ragged requests through ``ServingEngine`` +
    ``ContinuousBatchingScheduler``, in bf16 and in f32. bf16: after a
@@ -27,7 +34,16 @@ Six phases, one result per line:
    ``torch.profiler`` for the device time by kernel group. f32: every
    generated token is checked against the plain dense model,
    teacher-forced;
-4. ``training`` — the training main path: ``GPTHybridTrainStep`` on
+5. ``serving_prefix`` — the chunked engine with and without the prefix
+   cache at GPT-345M width: eight prompts sharing a 768-token prefix
+   (page 64, chunk 256, prefill budget 896 tokens a tick), bf16 counted
+   runs after a warm-up, then f32, where every token with the cache equals
+   the token without it;
+6. ``serving_int8`` — the eight ragged requests of ``serving`` with
+   ``quantize="int8"``: a bf16 counted run beside the float engine's, then
+   f32, where every token equals the argmax of the dense model on the
+   dequantized weights;
+7. ``training`` — the training main path: ``GPTHybridTrainStep`` on
    GPT-345M at full width (B = 12, S = 1024, bf16 compute, f32 masters and
    moments, ``remat="dots"``), 3 warm-up and 5 timed steps on one repeated
    batch (tokens/s, step time, MFU, peak memory, every loss, and the flash
@@ -40,7 +56,7 @@ Six phases, one result per line:
 Exits non-zero, without the final line, when CUDA is unavailable or any
 phase fails. The last line is ``{"ok": true, "device": {...}}``; the line
 before it is the card's ``nvidia-smi`` name and power limit, and before
-that one JSON object holds the per-kernel numbers.
+that one JSON object holds the per-kernel numbers (six kernels).
 """
 from __future__ import annotations
 
@@ -61,6 +77,14 @@ PEAK_BYTES_PER_S = 3.35e12
 PROMPT_LENS = (937, 512, 701, 233, 864, 129, 395, 620)
 MAX_NEW = 64
 N_RUNS = 3          # bf16 serving runs, each timed and counted on its own
+HOLD_CYCLES = 400_000_000   # ~0.2 s of device sleep to hold the stream
+# the shared-prefix cell: 8 requests of a 768-token prefix and a 128-token
+# suffix, chunks of 256 and a prefill budget of 896 tokens a tick
+PREFIX_LEN, SUFFIX_LEN, N_PREFIX_REQS, CHUNK, BUDGET = 768, 128, 8, 256, 896
+# the GPT-345M weight shapes of the int8 kernel: (name, K, N, layout)
+INT8_SHAPES = (("wqkv", 1024, 3072, "kn"), ("wo", 1024, 1024, "kn"),
+               ("w1", 1024, 4096, "kn"), ("w2", 4096, 1024, "kn"),
+               ("logits", 1024, 50304, "nk"))
 
 # kernel vs plain version: the largest |out - ref|, held to about twice
 # the error each kernel showed on the card (bf16 shows one or two bf16
@@ -68,6 +92,14 @@ N_RUNS = 3          # bf16 serving runs, each timed and counted on its own
 # |ref|: round-to-nearest leaves it near 0, truncation makes it ~ -3e-3.
 TOL = {("flash", "float32"): 1e-4, ("flash", "bfloat16"): 8e-3,
        ("paged", "float32"): 1e-4, ("paged", "bfloat16"): 5e-3,
+       # the chunk prefill's plain version is the XLA path, which divides
+       # the bf16 scores by sqrt(d) in bf16 where the kernel scales the f32
+       # scores: in bf16 they differ by that rounding
+       ("paged_prefill", "float32"): 1e-4,
+       ("paged_prefill", "bfloat16"): 5e-2,
+       # int8 matmul, as a share of the largest |ref|: f32 sums in another
+       # order; bf16 one rounding of the f32 result (2^-8 of the largest)
+       ("int8", "float32"): 1e-5, ("int8", "bfloat16"): 8e-3,
        # gradients, as a share of the largest |ref| (at least 1), beside
        # GRAD_TOL below: the Function's reference rounds neither P before
        # P^T dO nor dS, so up to S rounding errors of dS add up there
@@ -103,8 +135,17 @@ GRAD_REL_TOL = {"kernel_vs_plain": 1e-4, "dots_vs_none": 1e-6}
 TRAIN_LOSS_TOL = 1e-4
 
 
+_T0 = time.perf_counter()
+
+
 def _log(msg):
     print(msg, flush=True)
+
+
+def _stamp(what):
+    """A line with the seconds since the script started, to see where a
+    phase spends its time."""
+    _log(f"  [{time.perf_counter() - _T0:.1f} s] {what}")
 
 
 def _nvidia_smi() -> str:
@@ -127,6 +168,36 @@ def _time_ms(torch, fn, iters, warmup=3):
         fn()
     end.record()
     end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def _time_held_ms(torch, fn, iters, warmup=3):
+    """Device time per call of ``fn``: a device-side sleep holds the stream
+    while the host enqueues the calls, so the events around them time the
+    device's work alone, not the host's issue (which is slower than the
+    device for a kernel of a few microseconds). Fails if the sleep did not
+    outlast the enqueue."""
+    for _ in range(warmup):
+        fn()
+    ev = lambda: torch.cuda.Event(enable_timing=True)    # noqa: E731
+    s0, s1, start, end = ev(), ev(), ev(), ev()
+    torch.cuda.synchronize()
+    s0.record()
+    torch.cuda._sleep(HOLD_CYCLES)
+    s1.record()
+    s1.synchronize()
+    sleep_ms = s0.elapsed_time(s1)
+    torch.cuda._sleep(HOLD_CYCLES)
+    t0 = time.perf_counter()
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    issue_ms = (time.perf_counter() - t0) * 1e3
+    end.synchronize()
+    if issue_ms > 0.8 * sleep_ms:
+        raise AssertionError(f"the device sleep ({sleep_ms:.1f} ms) did not "
+                             f"outlast the host's enqueue ({issue_ms:.1f} ms)")
     return start.elapsed_time(end) / iters
 
 
@@ -461,12 +532,215 @@ def phase_paged(torch, res):
         del kp, vp
 
 
+def _prefill_case(torch, gen, dt, B, C, nh, d, ps, pps, n_shared=0,
+                  pad_rows=0):
+    """q as the q view of a fused [B, C, 3, nh, d] projection (as the chunk
+    program passes it), a pool of shuffled pages and its page table; the
+    second sequence maps the first's leading ``n_shared`` pages; the last
+    ``pad_rows`` chunk rows are padding (zero rows)."""
+    dev = torch.device("cuda")
+    dtype = getattr(torch, dt)
+    npg = B * pps + 1
+    qkv = torch.randn(B, C, 3, nh, d, device=dev, generator=gen).to(dtype)
+    if pad_rows:
+        qkv[:, C - pad_rows:] = 0
+    kp = torch.randn(npg, ps, nh, d, device=dev, generator=gen).to(dtype)
+    vp = torch.randn(npg, ps, nh, d, device=dev, generator=gen).to(dtype)
+    perm = torch.randperm(npg - 1, device=dev, generator=gen) + 1
+    pt = perm.reshape(B, pps).to(torch.int32)
+    if n_shared:
+        pt[1, :n_shared] = pt[0, :n_shared]
+    return qkv[:, :, 0], kp, vp, pt.contiguous()
+
+
+def phase_paged_prefill(torch, res):
+    from paddle_tpu_torch.kernels import paged_attention as pa
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    # (B, C, nh, d, ps, pps, q_offset, n_shared, pad_rows)
+    cases = [(1, 256, 8, 128, 64, 16, 0, 0, 0),       # the first chunk
+             (1, 256, 8, 128, 64, 16, 37, 0, 0),      # mid-page offset
+             (1, 256, 8, 128, 64, 16, 256, 0, 0),     # pages 8-15 skipped
+             (1, 256, 8, 128, 64, 16, 768, 0, 0),     # the serving shape
+             (1, 256, 8, 128, 64, 16, 640, 0, 128),   # a padded last chunk
+             (1, 256, 16, 64, 64, 16, 512, 0, 0),     # d = 64
+             (2, 256, 8, 128, 64, 16, 768, 12, 0)]    # a shared prefix
+    worst, failed = {}, []
+    for dt in ("bfloat16", "float32"):
+        for B, C, nh, d, ps, pps, off, shared, pad in cases:
+            q, kp, vp, pt = _prefill_case(torch, gen, dt, B, C, nh, d, ps,
+                                          pps, shared, pad)
+            out = pa.ragged_prefill_attention(q, kp, vp, pt, off)
+            torch.cuda.synchronize()
+            ref = pa.paged_prefill_attention(q, kp, vp, pt, off)
+            err, bias, ok = _check("paged_prefill", out, ref, dt)
+            finite = bool(torch.isfinite(out.float()).all())
+            ok = ok and finite
+            _log(f"ragged_prefill_attention {dt} B={B} C={C} nh={nh} d={d} "
+                 f"page={ps} pages/seq={pps} q_offset={off} shared_pages="
+                 f"{shared} pad_rows={pad}: max_abs_err={err:.3e} "
+                 f"bias={bias:.2e} ({_tol_text('paged_prefill', dt)}) "
+                 f"finite={finite} {'ok' if ok else 'FAIL'}")
+            if not ok:
+                failed.append(f"{dt} q_offset={off} d={d} B={B}")
+            worst[dt] = max(worst.get(dt, 0.0), err)
+    if failed:       # every case is logged first, then the phase fails
+        raise AssertionError(f"chunk prefill kernel disagrees: {failed}")
+    # the serving shape, bf16: 24 layers' pools cycled (108 MB > 50 MB L2)
+    B, C, nh, d, ps, pps, off = 1, 256, 8, 128, 64, 16, 768
+    n_layers = 24
+    pools = [_prefill_case(torch, gen, "bfloat16", B, C, nh, d, ps, pps)
+             for _ in range(n_layers)]
+    q, _, _, pt = pools[0]
+
+    def cycling(fn, step=[0]):
+        def run():
+            i = step[0] % n_layers
+            step[0] += 1
+            return fn(q, pools[i][1], pools[i][2], pt, off)
+        return run
+    ms = _time_held_ms(torch, cycling(pa.ragged_prefill_attention), 100)
+    plain_ms = _time_held_ms(torch, cycling(pa.paged_prefill_attention), 20)
+    # the yardstick: SDPA with an explicit causal-offset mask over K/V
+    # already gathered dense (the gather not timed)
+    T = off + C
+    dense = []
+    for _, kp, vp, _ in pools:
+        idx = pt[0].long()
+        kd = kp[idx].reshape(1, pps * ps, nh, d)[:, :T].transpose(1, 2)
+        vd = vp[idx].reshape(1, pps * ps, nh, d)[:, :T].transpose(1, 2)
+        dense.append((kd.contiguous(), vd.contiguous()))
+    qt = q.transpose(1, 2).contiguous()
+    mask = (torch.arange(T, device="cuda")[None, :]
+            <= off + torch.arange(C, device="cuda")[:, None])
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    step = [0]
+
+    def lib():
+        i = step[0] % n_layers
+        step[0] += 1
+        return sdpa(qt, dense[i][0], dense[i][1], attn_mask=mask)
+    lib_ms = _time_held_ms(torch, lib, 100)
+    pairs = C * off + C * (C + 1) // 2       # (row, visible position) pairs
+    flops = 4 * d * pairs * nh * B
+    item = q.element_size()
+    nbytes = (2 * B * C * nh * d * item          # q and out
+              + 2 * B * T * nh * d * item         # the K and V reached
+              + pt.numel() * 4)
+    bound_ms, by = _bound(flops, nbytes, "bfloat16")
+    _log(f"ragged_prefill_attention bf16 C={C} nh={nh} d={d} page={ps} "
+         f"q_offset={off}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+         f"sdpa (dense K/V, offset mask) {lib_ms:.4f} ms, bound "
+         f"{bound_ms:.5f} ms ({by}: {flops / 1e9:.3f} GFLOP, "
+         f"{nbytes / 1e6:.3f} MB)")
+    res["paged_prefill"] = dict(
+        name="ragged_prefill_attention", route="cuda",
+        source="paddle_tpu_torch/csrc/paged_attention_prefill.cu",
+        replaces="paddle_tpu/kernels/paged_attention.py:191",
+        launches=None, max_abs_err=worst["bfloat16"], ms=ms,
+        plain_ms=plain_ms, bound_ms=bound_ms, bound_by=by,
+        library_ms=lib_ms)
+    res["paged_prefill_worst_err"] = worst
+
+
+def _int8_weight(torch, gen, K, N, layout, offset=0):
+    """A random int8 weight in its stored layout, and per-column scales of
+    a GPT-like magnitude (|w| up to ~0.1); ``offset`` bytes into a buffer
+    make a weight that is not 16-byte aligned."""
+    shape = (K, N) if layout == "kn" else (N, K)
+    buf = torch.randint(-128, 128, (K * N + offset,), device="cuda",
+                        generator=gen, dtype=torch.int8)
+    w = buf[offset:].view(shape)
+    s = torch.rand(N, device="cuda", generator=gen) * 7e-4 + 1e-4
+    return w, s
+
+
+def phase_int8(torch, res):
+    from paddle_tpu_torch.kernels import int8_matmul as im
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    cases = [(name, M, K, N, layout, 0) for name, K, N, layout in INT8_SHAPES
+             for M in (1, 8, 256)]
+    cases += [("odd_kn", 3, 100, 77, "kn", 0), ("odd_nk", 5, 1000, 50, "nk", 0),
+              ("ragged_n", 1, 1024, 3000, "kn", 0),
+              ("unaligned_kn", 8, 1024, 1024, "kn", 3),
+              ("unaligned_nk", 8, 1000, 640, "nk", 1)]
+    worst = {}
+    for dt in ("bfloat16", "float32"):
+        dtype = getattr(torch, dt)
+        for name, M, K, N, layout, offset in cases:
+            w, s = _int8_weight(torch, gen, K, N, layout, offset)
+            x = torch.randn(M, K, device="cuda", generator=gen).to(dtype)
+            out = im.int8_matmul(x, w, s, layout=layout)
+            torch.cuda.synchronize()
+            ref = im.int8_matmul_reference(x, w, s, layout)
+            top = max(1.0, ref.float().abs().max().item())
+            err, bias, ok = _check("int8", out, ref, dt, scale=top)
+            _log(f"int8_matmul {dt} {name} M={M} K={K} N={N} layout={layout}"
+                 f"{' unaligned' if offset else ''}: max_abs_err={err:.3e} "
+                 f"(tol {TOL['int8', dt]:g} x {top:.3g}) bias={bias:.2e} "
+                 f"{'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"int8 kernel disagrees: {dt} {name} M={M}")
+            worst[dt] = max(worst.get(dt, 0.0), err)
+    # each decode shape at M = 8, bf16, over enough weight copies to stream
+    # from device memory (> 150 MB), against the plain version and a cuBLAS
+    # bf16 matmul on a weight dequantized ahead of time (twice the bytes,
+    # no scale)
+    M = 8
+    rows = {}
+    for name, K, N, layout in INT8_SHAPES:
+        n_copy = max(2, math.ceil(150e6 / (K * N)))
+        ws = [_int8_weight(torch, gen, K, N, layout) for _ in range(n_copy)]
+        dq = [(w.to(torch.bfloat16) if layout == "kn"
+               else w.t().to(torch.bfloat16).contiguous()) for w, _ in ws]
+        x = torch.randn(M, K, device="cuda", generator=gen).to(torch.bfloat16)
+
+        def cyc(fn, step=[0]):
+            def run():
+                i = step[0] % n_copy
+                step[0] += 1
+                return fn(i)
+            return run
+        ms = _time_held_ms(torch, cyc(lambda i: im.int8_matmul(
+            x, ws[i][0], ws[i][1], layout=layout)), 100)
+        plain_ms = _time_held_ms(torch, cyc(lambda i: im.int8_matmul_reference(
+            x, ws[i][0], ws[i][1], layout)), 20)
+        lib_ms = _time_held_ms(torch, cyc(lambda i: torch.matmul(x, dq[i])),
+                               100)
+        nbytes = K * N + 4 * N + 2 * M * K + 2 * M * N
+        bound_ms, by = _bound(2 * M * K * N, nbytes, "bfloat16")
+        rows[name] = dict(M=M, K=K, N=N, layout=layout, ms=ms,
+                          plain_ms=plain_ms, library_ms=lib_ms,
+                          bound_ms=bound_ms, bound_by=by)
+        _log(f"int8_matmul bf16 {name} M={M} K={K} N={N} ({layout}): kernel "
+             f"{ms:.4f} ms ({nbytes / ms / 1e6:.1f} GB/s), plain "
+             f"{plain_ms:.4f} ms, cuBLAS bf16 on the dequantized weight "
+             f"{lib_ms:.4f} ms, bound {bound_ms:.5f} ms ({by}: "
+             f"{nbytes / 1e6:.3f} MB)")
+        del ws, dq
+    total = {k: sum(r[k] for r in rows.values())
+             for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
+    _log(f"int8_matmul bf16 M=8, the five shapes of a decode layer and its "
+         f"logits: kernel {total['ms']:.4f} ms, plain {total['plain_ms']:.4f}"
+         f" ms, cuBLAS {total['library_ms']:.4f} ms, bound "
+         f"{total['bound_ms']:.5f} ms")
+    res["int8"] = dict(
+        name="int8_matmul", route="cuda",
+        source="paddle_tpu_torch/csrc/int8_matmul.cu",
+        replaces="paddle_tpu/kernels/int8_matmul.py:52",
+        launches=None, max_abs_err=worst["bfloat16"], ms=total["ms"],
+        plain_ms=total["plain_ms"], bound_ms=total["bound_ms"],
+        bound_by="bytes", library_ms=total["library_ms"],
+        timed="sum over wqkv, wo, w1, w2 and the logits at M = 8",
+        shapes=rows)
+    res["int8_worst_err"] = worst
+
+
 # ----------------------------------------------------------------- phase 3
 
-def _engine(model):
+def _engine(model, **kw):
     from paddle_tpu_torch.serving import ServingEngine
     return ServingEngine(model, page_size=64, decode_buckets=(1, 2, 4, 8),
-                         prefill_buckets=(256, 512, 1024), device="cuda")
+                         prefill_buckets=(256, 512, 1024), device="cuda", **kw)
 
 
 def _serve(eng, cfg, np):
@@ -510,12 +784,14 @@ def _serve_counted(torch, np, eng, cfg):
     from paddle_tpu_torch.kernels import paged_attention as pa
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    fa.launches = 0
-    pa.launches = 0
+    _zero_counts()
     t0 = time.perf_counter()
     sched, reqs = _serve(eng, cfg, np)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    _check_counts("serving bf16", {k: v for k, v in _counts().items()
+                                   if k not in ("flash", "paged")},
+                  {})
     new = sum(len(r.tokens) for r in reqs)
     ttft = [r.summary()["ttft_s"] for r in reqs]
     e2e = dict(tokens_per_s=new / wall, wall_s=wall, new_tokens=new,
@@ -524,7 +800,8 @@ def _serve_counted(torch, np, eng, cfg):
                per_token_p95_ms=_pct(sched.step_times, 0.95) * 1e3,
                ttft_mean_ms=sum(ttft) / len(ttft) * 1e3,
                max_memory_allocated_bytes=torch.cuda.max_memory_allocated(),
-               flash_launches=fa.launches, paged_launches=pa.launches)
+               flash_launches=fa.launches, paged_launches=pa.launches,
+               weight_bytes=eng.weight_bytes())
     want_flash = cfg.num_layers * len(PROMPT_LENS)
     want_paged = cfg.num_layers * sched.steps
     if e2e["flash_launches"] != want_flash or \
@@ -641,6 +918,10 @@ def _kernel_group(name):
         return "flash_attention_bwd_dkv"
     if "paged_decode_kernel" in name:
         return "paged_attention_decode"
+    if "paged_prefill_kernel" in name:
+        return "ragged_prefill_attention"
+    if "int8_mm_" in name:
+        return "int8_matmul"
     if any(s in name.lower() for s in ("gemm", "gemv", "xmma", "cutlass",
                                        "nvjet")):
         return "matmul (cuBLAS)"
@@ -705,6 +986,35 @@ def _profile_engine(torch, np, eng, cfg):
     return out
 
 
+def _check_tokens(torch, np, model, reqs):
+    """Every generated token of ``reqs`` against the argmax of ``model``
+    (dense, teacher-forced on the request's own output): equal, or a near
+    tie (top-2 gap < 1e-3, the token among the top two), counted. Returns
+    (tokens checked, near ties)."""
+    checked = near_ties = 0
+    with torch.no_grad():
+        for r in reqs:
+            ids = torch.from_numpy(r.output_ids.astype(np.int64)).cuda()
+            logits = model(ids[None, :-1])[0].float()
+            n = len(r.prompt)
+            for i, tok in enumerate(r.tokens):
+                row = logits[n - 1 + i]
+                if not bool(torch.isfinite(row).all()):
+                    raise AssertionError(f"non-finite logits, rid {r.rid}")
+                top2 = torch.topk(row, 2)
+                checked += 1
+                if int(top2.indices[0]) == tok:
+                    continue
+                gap = float(top2.values[0] - top2.values[1])
+                if gap < 1e-3 and row[tok] >= top2.values[1]:
+                    near_ties += 1
+                    continue
+                raise AssertionError(
+                    f"rid {r.rid} token {i}: engine {tok}, reference "
+                    f"argmax {int(top2.indices[0])} (top-2 gap {gap:.3e})")
+    return checked, near_ties
+
+
 def phase_serving(torch, np, res):
     from paddle_tpu_torch.kernels import flash_attention as fa
     from paddle_tpu_torch.kernels import paged_attention as pa
@@ -748,27 +1058,7 @@ def phase_serving(torch, np, res):
                              f"{pa.launches}")
     if not all(r.state == "finished" for r in reqs) or eng.pool.pages_in_use:
         raise AssertionError("f32 run: unfinished requests or leaked pages")
-    checked = near_ties = 0
-    with torch.no_grad():
-        for r in reqs:
-            ids = torch.from_numpy(r.output_ids.astype(np.int64)).cuda()
-            logits = model(ids[None, :-1])[0].float()
-            n = len(r.prompt)
-            for i, tok in enumerate(r.tokens):
-                row = logits[n - 1 + i]
-                if not bool(torch.isfinite(row).all()):
-                    raise AssertionError(f"non-finite logits, rid {r.rid}")
-                top2 = torch.topk(row, 2)
-                checked += 1
-                if int(top2.indices[0]) == tok:
-                    continue
-                gap = float(top2.values[0] - top2.values[1])
-                if gap < 1e-3 and row[tok] >= top2.values[1]:
-                    near_ties += 1
-                    continue
-                raise AssertionError(
-                    f"rid {r.rid} token {i}: engine {tok}, reference "
-                    f"argmax {int(top2.indices[0])} (top-2 gap {gap:.3e})")
+    checked, near_ties = _check_tokens(torch, np, model, reqs)
     agree = sum(a == b for x, y in zip(bf16_tokens, reqs)
                 for a, b in zip(x, y.tokens))
     res["serving_f32"] = dict(tokens_checked=checked, near_ties=near_ties,
@@ -776,6 +1066,296 @@ def phase_serving(torch, np, res):
     _log(f"serving f32: {checked} generated tokens equal the dense "
          f"reference's argmax (near ties, gap < 1e-3: {near_ties}); "
          f"bf16 tokens equal to f32: {agree}/{checked}")
+
+
+def _counts():
+    """Every kernel wrapper's launch count, by kernel."""
+    from paddle_tpu_torch.kernels import flash_attention as fa
+    from paddle_tpu_torch.kernels import int8_matmul as im
+    from paddle_tpu_torch.kernels import paged_attention as pa
+    return dict(flash=fa.launches, flash_bwd_dq=fa.dq_launches,
+                flash_bwd_dkv=fa.dkv_launches, paged=pa.launches,
+                paged_prefill=pa.prefill_launches, int8=im.launches)
+
+
+def _zero_counts():
+    from paddle_tpu_torch.kernels import flash_attention as fa
+    from paddle_tpu_torch.kernels import int8_matmul as im
+    from paddle_tpu_torch.kernels import paged_attention as pa
+    fa.launches = fa.dq_launches = fa.dkv_launches = 0
+    pa.launches = pa.prefill_launches = 0
+    im.launches = 0
+
+
+def _check_counts(what, got, want):
+    """Launch counts of a counted run, held exactly; kernels not named in
+    ``want`` must not have launched."""
+    full = {k: want.get(k, 0) for k in got}
+    if got != full:
+        raise AssertionError(f"{what}: launch counts {got}, want {full}")
+
+
+def _model_345m(torch, seed=0):
+    from paddle_tpu_torch.models.gpt import (GPTForPretraining, GPTModel,
+                                             gpt_345m_config)
+    cfg = gpt_345m_config(max_position_embeddings=1024, num_heads=8)
+    return GPTForPretraining(GPTModel(cfg, seed=seed, device="cuda")).eval(), \
+        cfg
+
+
+def _run_sched(torch, sched, prompts, max_new):
+    """Submit every prompt at t = 0 and step to the end; returns the
+    requests, the wall seconds and the peak of pages shared in flight."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    reqs = [sched.submit(p, max_new_tokens=max_new) for p in prompts]
+    peak_shared = 0
+    while sched.pending:
+        sched.step()
+        peak_shared = max(peak_shared, sched.engine.pool.pages_shared)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if not all(r.state == "finished" and len(r.tokens) == max_new
+               for r in reqs):
+        raise AssertionError("unfinished requests")
+    return reqs, wall, peak_shared
+
+
+def _e2e(sched, reqs, wall):
+    ttft = sorted(r.summary()["ttft_s"] * 1e3 for r in reqs)
+    new = sum(len(r.tokens) for r in reqs)
+    return dict(tokens_per_s=new / wall, wall_s=wall, new_tokens=new,
+                decode_steps=sched.steps,
+                per_token_p50_ms=_pct(sched.step_times, 0.5) * 1e3,
+                per_token_p95_ms=_pct(sched.step_times, 0.95) * 1e3,
+                ttft_mean_ms=sum(ttft) / len(ttft), ttft_p95_ms=_pct(ttft, 0.95),
+                ttft_ms=ttft)
+
+
+def _prefix_engine(model, cache):
+    from paddle_tpu_torch.serving import ServingEngine
+    return ServingEngine(model, page_size=64, decode_buckets=(1, 2, 4, 8),
+                         prefill_chunk=CHUNK, prefix_cache=cache,
+                         device="cuda")
+
+
+def _prefix_run(torch, eng, prompts, label, max_new=MAX_NEW):
+    """One counted run of the shared-prefix traffic; launch counts held
+    exactly: the chunk kernel once a layer per chunk, the paged decode
+    kernel once a layer per decode step, nothing else."""
+    from paddle_tpu_torch.serving import ContinuousBatchingScheduler
+    if eng.prefix_cache is not None:
+        eng.prefix_cache.clear()             # every run starts cold
+    sched = ContinuousBatchingScheduler(eng, prefill_token_budget=BUDGET)
+    _zero_counts()
+    reqs, wall, peak_shared = _run_sched(torch, sched, prompts, max_new)
+    counts = _counts()
+    L = eng.cfg.num_layers
+    chunks = sum(r.prefill_chunks for r in reqs)
+    _check_counts(label, counts, dict(paged_prefill=L * chunks,
+                                      paged=L * sched.steps))
+    if eng.pool.live_sequences:
+        raise AssertionError(f"{label}: sequences left in the pool")
+    e2e = _e2e(sched, reqs, wall)
+    e2e.update(cached_prefix_lens=[r.cached_prefix_len for r in reqs],
+               prefill_chunks=chunks, peak_pages_shared=peak_shared,
+               launches=counts,
+               max_prefill_tokens_per_tick=max(sched.prefill_tokens_per_tick),
+               pool=eng.pool.stats())
+    return e2e, reqs
+
+
+def _check_same_tokens(torch, np, model, got, ref):
+    """Every token of ``got`` equal to ``ref``'s at the same place; at a
+    request's first difference, ``ref``'s dense argmax must be a near tie
+    (top-2 gap < 1e-3, both tokens among the top two), counted, and the
+    rest of that request is not compared. Returns (compared, near ties)."""
+    compared = near_ties = 0
+    with torch.no_grad():
+        for a, b in zip(got, ref):
+            for i, (x, y) in enumerate(zip(a.tokens, b.tokens)):
+                compared += 1
+                if x == y:
+                    continue
+                ids = torch.from_numpy(b.output_ids.astype(np.int64)).cuda()
+                row = model(ids[None, :-1])[0].float()[len(b.prompt) - 1 + i]
+                top2 = torch.topk(row, 2)
+                gap = float(top2.values[0] - top2.values[1])
+                if gap < 1e-3 and {x, y} <= set(top2.indices.tolist()):
+                    near_ties += 1
+                    break
+                raise AssertionError(
+                    f"rid {a.rid} token {i}: {x} with the cache, {y} without "
+                    f"(top-2 gap {gap:.3e})")
+    return compared, near_ties
+
+
+def phase_serving_prefix(torch, np, res):
+    from paddle_tpu_torch.serving import make_shared_prefix_workload
+    model, cfg = _model_345m(torch)
+    prompts = make_shared_prefix_workload(cfg.vocab_size, N_PREFIX_REQS,
+                                          prefix_len=PREFIX_LEN,
+                                          suffix_len=SUFFIX_LEN, seed=2)
+    warm = make_shared_prefix_workload(cfg.vocab_size, 3, PREFIX_LEN,
+                                       SUFFIX_LEN, seed=7)
+    _log(f"serving_prefix: {N_PREFIX_REQS} requests, a shared prefix of "
+         f"{PREFIX_LEN} tokens + {SUFFIX_LEN} of their own, {MAX_NEW} new "
+         f"tokens each; page 64, chunk {CHUNK}, prefill budget {BUDGET} "
+         f"tokens a tick")
+    out = {}
+    bf16 = copy.deepcopy(model).to(torch.bfloat16)
+    for cache in (True, False):
+        label = f"serving_prefix bf16 cache={'on' if cache else 'off'}"
+        eng = _prefix_engine(bf16, cache)
+        _stamp(f"{label}: engine built")
+        _prefix_run(torch, eng, warm, label + " warm-up")
+        _stamp(f"{label}: warmed up")
+        e2e, _ = _prefix_run(torch, eng, prompts, label)
+        out["bf16_cache_" + ("on" if cache else "off")] = e2e
+        _log(f"{label}: " + json.dumps({k: v for k, v in e2e.items()
+                                       if k not in ("pool", "ttft_ms")}))
+        # the prefill-heavy window: the same traffic with 8 new tokens (the
+        # decode step is the float engine's, profiled in phase serving)
+        _log(f"{label}, 8 new tokens, profiled:")
+        out["profile_8_new_cache_" + ("on" if cache else "off")] = \
+            _profile_run(torch, lambda: _prefix_run(
+                torch, eng, prompts, label + " profiled", max_new=8))
+        del eng
+    del bf16
+    on = out["bf16_cache_on"]
+    # the first request misses; every later one reuses at least the prefix
+    # (a suffix that starts like an earlier one's reuses a few rows more)
+    cached = on["cached_prefix_lens"]
+    if cached[0] != 0 or min(cached[1:]) < PREFIX_LEN \
+            or on["peak_pages_shared"] < PREFIX_LEN // 64:
+        raise AssertionError(f"prefix cache reuse: {on['cached_prefix_lens']}"
+                             f", peak pages shared {on['peak_pages_shared']}")
+    # f32: the cache changes no token
+    _stamp("serving_prefix bf16 done")
+    reqs = {}
+    for cache in (True, False):
+        eng = _prefix_engine(model, cache)
+        _, reqs[cache] = _prefix_run(
+            torch, eng, prompts, f"serving_prefix f32 cache={cache}")
+        del eng
+    _stamp("serving_prefix f32 runs done")
+    checked, near_off = _check_tokens(torch, np, model, reqs[False])
+    compared, near = _check_same_tokens(torch, np, model, reqs[True],
+                                        reqs[False])
+    out["f32"] = dict(tokens_checked_vs_dense=checked,
+                      near_ties_vs_dense=near_off,
+                      tokens_compared_on_vs_off=compared,
+                      near_ties_on_vs_off=near,
+                      cached_prefix_lens=[r.cached_prefix_len
+                                          for r in reqs[True]])
+    _log(f"serving_prefix f32: cache off, {checked} tokens equal the dense "
+         f"argmax (near ties {near_off}); cache on, {compared} tokens equal "
+         f"the cache-off run's (near ties {near})")
+    res["serving_prefix"] = out
+
+
+def _dequantized_model(torch, model, params):
+    """A copy of ``model`` carrying the dequantized (f32) weights of the
+    int8 engine's ``params``."""
+    from paddle_tpu_torch.quantization.export import dequantize_stacked_weight
+    dense = copy.deepcopy(model)
+    gpt = dense.gpt
+    with torch.no_grad():
+        for k, v in params["blocks"].items():
+            full = dequantize_stacked_weight(v, torch.float32)
+            for i, layer in enumerate(gpt.layers):
+                getattr(layer, k).copy_(full[i])
+        gpt.embeddings.word_embeddings.copy_(
+            dequantize_stacked_weight(params["wte"]))
+        gpt.embeddings.position_embeddings.copy_(
+            dequantize_stacked_weight(params["wpe"]))
+    return dense
+
+
+def phase_serving_int8(torch, np, res):
+    from paddle_tpu_torch.serving import ContinuousBatchingScheduler
+    model, cfg = _model_345m(torch)
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(0, cfg.vocab_size, (s,)).astype(np.int32)
+               for s in PROMPT_LENS]
+    L = cfg.num_layers
+
+    def counted(eng, label):
+        sched = ContinuousBatchingScheduler(eng)
+        torch.cuda.reset_peak_memory_stats()
+        _zero_counts()
+        reqs, wall, _ = _run_sched(torch, sched, prompts, MAX_NEW)
+        counts = _counts()
+        # the 4 block matmuls of every layer and the logits per decode
+        # step, and each prefill's logits
+        _check_counts(label, counts, dict(
+            int8=(4 * L + 1) * sched.steps + len(prompts),
+            flash=L * len(prompts), paged=L * sched.steps))
+        if eng.pool.pages_in_use:
+            raise AssertionError(f"{label}: leaked pages")
+        e2e = _e2e(sched, reqs, wall)
+        e2e.update(launches=counts, weight_bytes=eng.weight_bytes(),
+                   max_memory_allocated_bytes=torch.cuda.max_memory_allocated())
+        return e2e, reqs
+
+    eng = _engine(copy.deepcopy(model).to(torch.bfloat16), quantize="int8")
+    _stamp("serving_int8 bf16 engine built")
+    _warm(eng, cfg, np)
+    _stamp("serving_int8 bf16 warmed up")
+    e2e, _ = counted(eng, "serving_int8 bf16")
+    float_e2e = res.get("serving_bf16", {})
+    _log("serving_int8 bf16: " + json.dumps(
+        {k: v for k, v in e2e.items() if k != "ttft_ms"}))
+    _log(f"serving_int8 bf16 beside the float engine (phase serving, run 1): "
+         f"tokens/s {e2e['tokens_per_s']:.1f} vs "
+         f"{float_e2e.get('tokens_per_s', float('nan')):.1f}, per-token p50 "
+         f"{e2e['per_token_p50_ms']:.2f} vs "
+         f"{float_e2e.get('per_token_p50_ms', float('nan')):.2f} ms, weights "
+         f"{e2e['weight_bytes']} vs {float_e2e.get('weight_bytes')} bytes")
+    _log("serving_int8 bf16, the windows of phase serving's profile:")
+    prof = _profile_engine(torch, np, eng, cfg)
+    del eng
+    # f32: every token against the dense model on the dequantized weights
+    _stamp("serving_int8 bf16 done")
+    eng = _engine(model, quantize="int8")
+    _stamp("serving_int8 f32 engine built")
+    _, reqs = counted(eng, "serving_int8 f32")
+    _stamp("serving_int8 f32 run done")
+    dense = _dequantized_model(torch, model, eng.params)
+    del eng
+    checked, near = _check_tokens(torch, np, dense, reqs)
+    _log(f"serving_int8 f32: {checked} generated tokens equal the argmax of "
+         f"the dense model on the dequantized weights (near ties, gap < "
+         f"1e-3: {near})")
+    res["serving_int8"] = dict(bf16=e2e, profile=prof,
+                               f32=dict(tokens_checked=checked,
+                                        near_ties=near))
+
+
+def _profile_run(torch, fn):
+    """One more run of ``fn`` under ``torch.profiler``: wall, device busy
+    share and device time by kernel group (a lower bound on the busy share
+    of an unprofiled run)."""
+    wall, by_name = _device_time(torch, fn)
+    groups = {}
+    for name, us in by_name.items():
+        groups[_kernel_group(name)] = groups.get(_kernel_group(name), 0.0) \
+            + us
+    busy_us = sum(by_name.values())
+    row = dict(wall_ms=wall * 1e3,
+               device_ms=busy_us / 1e3 if by_name else None,
+               busy_share=busy_us / 1e6 / wall if by_name else None,
+               device_ms_by_group={g: us / 1e3 for g, us in sorted(
+                   groups.items(), key=lambda kv: -kv[1])})
+    if by_name:
+        _log(f"  profiled run: wall {row['wall_ms']:.2f} ms, device busy "
+             f"{row['device_ms']:.3f} ms (share {row['busy_share']:.3f}); "
+             + ", ".join(f"{g} {ms:.3f} ms"
+                         for g, ms in row["device_ms_by_group"].items()))
+    else:
+        _log("  profiled run: device time not measured (the profiler saw no "
+             "CUDA activity)")
+    return row
 
 
 # ----------------------------------------------------------------- phase 4
@@ -991,7 +1571,11 @@ def main(argv=None) -> int:
               ("flash", lambda: phase_flash(torch, res)),
               ("flash_bwd", lambda: phase_flash_bwd(torch, res)),
               ("paged", lambda: phase_paged(torch, res)),
+              ("paged_prefill", lambda: phase_paged_prefill(torch, res)),
+              ("int8", lambda: phase_int8(torch, res)),
               ("serving", lambda: phase_serving(torch, np, res)),
+              ("serving_prefix", lambda: phase_serving_prefix(torch, np, res)),
+              ("serving_int8", lambda: phase_serving_int8(torch, np, res)),
               ("training", lambda: phase_training(torch, np, res))]
     for name, fn in phases:
         t0 = time.perf_counter()
@@ -1012,7 +1596,8 @@ def main(argv=None) -> int:
         _log(f"chip_smoke: failed phases {failed}")
         return 1
     # launches: each kernel's count over its main path's counted run (the
-    # first bf16 serving run; the five timed training steps), by path
+    # first bf16 serving run; the five timed training steps; the bf16
+    # cache-on shared-prefix run; the bf16 int8 run), by path
     train = res["training_bf16"]["launches"]
     res["flash"]["launches"] = res["serving_bf16"]["flash_launches"]
     res["flash"]["launches_by_path"] = dict(
@@ -1021,11 +1606,24 @@ def main(argv=None) -> int:
     for key in ("flash_bwd_dq", "flash_bwd_dkv"):
         res[key]["launches"] = train[key]
         res[key]["launches_by_path"] = dict(training=train[key])
+    prefix = res["serving_prefix"]["bf16_cache_on"]["launches"]
+    prefix_off = res["serving_prefix"]["bf16_cache_off"]["launches"]
+    int8 = res["serving_int8"]["bf16"]["launches"]
     res["paged"]["launches"] = res["serving_bf16"]["paged_launches"]
     res["paged"]["launches_by_path"] = dict(
-        serving=res["serving_bf16"]["paged_launches"])
-    print(json.dumps({"kernels": [res[k] for k in (
-        "flash", "flash_bwd_dq", "flash_bwd_dkv", "paged")]}))
+        serving=res["serving_bf16"]["paged_launches"],
+        serving_prefix=prefix["paged"], serving_int8=int8["paged"])
+    res["flash"]["launches_by_path"]["serving_int8"] = int8["flash"]
+    res["paged_prefill"]["launches"] = prefix["paged_prefill"]
+    res["paged_prefill"]["launches_by_path"] = dict(
+        serving_prefix=prefix["paged_prefill"],
+        serving_prefix_cache_off=prefix_off["paged_prefill"])
+    res["int8"]["launches"] = int8["int8"]
+    res["int8"]["launches_by_path"] = dict(serving_int8=int8["int8"])
+    print(json.dumps({"kernels": [
+        {k: v for k, v in res[key].items() if k != "shapes"} for key in (
+            "flash", "flash_bwd_dq", "flash_bwd_dkv", "paged",
+            "paged_prefill", "int8")]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

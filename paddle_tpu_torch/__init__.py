@@ -8,12 +8,17 @@ Importing it has no global side effects: no device is touched, no kernel
 is built (the CUDA kernels compile at their first launch, see
 :mod:`paddle_tpu_torch.kernels._build`), and no RNG state is seeded.
 
-Ported so far, the GPT serving main path (``ROADMAP.md`` lists the rest):
+Ported so far, GPT serving and training (``ROADMAP.md`` lists the rest):
 
-- :mod:`.models.gpt` — the GPT model family as ``nn.Module``s;
-- :mod:`.kernels.flash_attention` — FlashAttention-2 forward (CUDA);
-- :mod:`.kernels.paged_attention` — ragged paged-attention decode (CUDA);
-- :mod:`.serving` — ``PagePool``, ``ServingEngine`` and
+- :mod:`.models.gpt` — the GPT model family as ``nn.Module``s and the
+  training step;
+- :mod:`.kernels.flash_attention` — FlashAttention-2 forward and
+  backward (CUDA);
+- :mod:`.kernels.paged_attention` — paged-attention decode and ragged
+  chunk prefill (CUDA);
+- :mod:`.kernels.int8_matmul` — weight-only int8 dequant-matmul (CUDA);
+- :mod:`.quantization.export` — int8 quantization of the stacked weights;
+- :mod:`.serving` — ``PagePool``, ``PrefixCache``, ``ServingEngine`` and
   ``ContinuousBatchingScheduler``.
 
 Entry points run on CUDA unless the caller passes ``device="cpu"``

@@ -57,6 +57,13 @@ _SIGNATURES = {
                                    _I, _I, _I, _I, _I, _I,   # dtype B nh nkv D ps
                                    _I, _I, _I,               # pages_per_seq q_sb q_sh
                                    _F, _P],                  # scale stream
+    "ptt_paged_attention_prefill": [_P, _P, _P, _P, _P,      # q kp vp pt out
+                                    _I, _I, _I, _I, _I, _I, _I,  # dtype B C nh D ps pps
+                                    _I, _I, _I, _I,          # q strides b s h, q_offset
+                                    _F, _P],                 # scale stream
+    "ptt_int8_matmul": [_P, _P, _P, _P, _P, _P,              # x w scale out ws counters
+                        _I, _I, _I, _I, _I, _I, _I, _I,      # dtype layout M N K x_stride ksplit vec
+                        _P],                                 # stream
 }
 
 

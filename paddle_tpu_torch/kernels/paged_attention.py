@@ -1,10 +1,14 @@
-"""Ragged paged-attention decode: a hand-written CUDA kernel and its plain
-version.
+"""Paged attention over the serving pool: hand-written CUDA kernels and
+their plain versions.
 
-Counterpart of ``paddle_tpu/kernels/paged_attention.py`` (the decode kernel;
-the chunk-prefill kernel is still to be ported). The kernel is
-``csrc/paged_attention_decode.cu``; it replaces the Pallas
-``_decode_kernel``.
+Counterpart of ``paddle_tpu/kernels/paged_attention.py``. Two kernels
+replace the two Pallas kernels there:
+
+- ``csrc/paged_attention_decode.cu`` (``_decode_kernel``): one new token
+  per sequence, :func:`paged_attention_decode`;
+- ``csrc/paged_attention_prefill.cu`` (``_prefill_kernel``): a prompt
+  chunk at a runtime offset, :func:`ragged_prefill_attention`, whose
+  plain version is the XLA path :func:`paged_prefill_attention`.
 
 Layout contract, as in the JAX package:
 
@@ -20,8 +24,9 @@ Layout contract, as in the JAX package:
 
 The TPU wrapper's pool-wide pad of d to 128 lanes is not ported.
 
-Dispatch: CPU tensors take :func:`paged_attention_reference`; CUDA tensors
-launch the kernel or raise. ``launches`` counts kernel launches.
+Dispatch: CPU tensors take the plain version; CUDA tensors launch the
+kernel or raise. ``launches`` counts decode kernel launches,
+``prefill_launches`` chunk-prefill kernel launches.
 """
 from __future__ import annotations
 
@@ -32,6 +37,7 @@ import torch
 from . import _build
 
 __all__ = ["paged_attention_decode", "paged_attention_reference",
+           "ragged_prefill_attention", "paged_prefill_attention",
            "KERNEL_HEAD_DIMS"]
 
 KERNEL_HEAD_DIMS = (64, 128)
@@ -39,8 +45,9 @@ _NEG_INF = -1e30
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_SMEM = 232448           # bytes of shared memory a block may use (H100)
 
-# kernel launches since the counter was last set to 0
+# kernel launches since each counter was last set to 0: decode, chunk prefill
 launches = 0
+prefill_launches = 0
 
 
 def paged_attention_reference(q, k_pages, v_pages, page_table, seq_lens,
@@ -153,3 +160,110 @@ def paged_attention_decode(q, k_pages, v_pages, page_table, seq_lens,
         raise ValueError(f"paged decode runs on CUDA or CPU tensors, got "
                          f"{q.device}")
     return _launch(q, k_pages, v_pages, page_table, seq_lens, scale)
+
+
+# ------------------------------------------------------------ chunk prefill
+
+def paged_prefill_attention(q, k_pages, v_pages, page_table, q_offset,
+                            scale=None):
+    """Chunk prefill attention over the pool, plain PyTorch: the JAX XLA
+    path line by line. ``q`` ``[B, C, num_heads, d]``, row ``i`` at
+    absolute position ``q_offset + i``; pages and table as for decode.
+    Row ``i`` attends the positions ``<= q_offset + i``; the chunk's own
+    K/V must already be in the pages. The pages are gathered dense, the
+    scores divided by sqrt(d) in the compute dtype (or times ``scale``),
+    masked with -1e30, softmaxed in f32 and cast back before P.V."""
+    B, C, nh, d = q.shape
+    _, ps, nkv, _ = k_pages.shape
+    g = nh // nkv
+    t = page_table.shape[1] * ps
+    idx = page_table.long()
+    k = k_pages[idx].reshape(B, t, nkv, d)
+    v = v_pages[idx].reshape(B, t, nkv, d)
+    if g > 1:
+        k = k.repeat_interleave(g, dim=2)
+        v = v.repeat_interleave(g, dim=2)
+    logits = torch.einsum("bsnd,btnd->bnst", q, k)
+    logits = logits / math.sqrt(d) if scale is None else logits * scale
+    row = int(q_offset) + torch.arange(C, device=q.device)[:, None]
+    col = torch.arange(t, device=q.device)[None, :]
+    logits = logits.masked_fill(~(col <= row), _NEG_INF)
+    probs = torch.softmax(logits.float(), -1).to(q.dtype)
+    return torch.einsum("bnst,btnd->bsnd", probs, v)
+
+
+def _launch_prefill(q, k_pages, v_pages, page_table, q_offset, scale):
+    global prefill_launches
+    B, C, nh, d = q.shape
+    num_pages, ps, nkv, _ = k_pages.shape
+    dev = q.device
+    for name, t in (("k_pages", k_pages), ("v_pages", v_pages),
+                    ("page_table", page_table)):
+        if t.device != dev:
+            raise ValueError(f"{name} on {t.device}, q on {dev}")
+    if q.dtype not in _DTYPE_CODES or k_pages.dtype != q.dtype \
+            or v_pages.dtype != q.dtype:
+        raise TypeError(f"chunk prefill kernel takes float32 or bfloat16 "
+                        f"q and pages of one dtype, got {q.dtype}, "
+                        f"{k_pages.dtype}, {v_pages.dtype}")
+    if d not in KERNEL_HEAD_DIMS:
+        raise ValueError(f"head dim {d} not in {KERNEL_HEAD_DIMS}")
+    if k_pages.shape != v_pages.shape or k_pages.shape[3] != d:
+        raise ValueError(f"pages {tuple(k_pages.shape)} / "
+                         f"{tuple(v_pages.shape)} do not match q "
+                         f"{tuple(q.shape)}")
+    if not (k_pages.is_contiguous() and v_pages.is_contiguous()):
+        raise ValueError("chunk prefill kernel needs contiguous pages")
+    if page_table.dtype != torch.int32 or not page_table.is_contiguous() \
+            or page_table.dim() != 2 or page_table.shape[0] != B:
+        raise TypeError(f"page_table must be a contiguous int32 [{B}, "
+                        f"pages_per_seq], got {page_table.dtype} "
+                        f"{tuple(page_table.shape)}")
+    vec = 16 // q.element_size()
+    if q.stride(-1) != 1 or any(s % vec for s in q.stride()[:3]) \
+            or any(t.data_ptr() % 16 for t in (q, k_pages, v_pages)):
+        raise ValueError("chunk prefill kernel needs q with unit stride "
+                         "along d, 16-byte aligned rows and pages")
+    if k_pages.numel() >= 2 ** 40 or max(q.stride()[:3]) * max(B, C, nh) \
+            >= 2 ** 31:
+        raise ValueError("pool or q too large for the kernel's indexing")
+    if B * nh >= 65536:
+        raise ValueError(f"batch x heads {B * nh} exceeds the grid limit")
+    out = torch.empty((B, C, nh, d), dtype=q.dtype, device=dev)
+    lib = _build.load_library()
+    with torch.cuda.device(dev):
+        err = lib.ptt_paged_attention_prefill(
+            q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+            page_table.data_ptr(), out.data_ptr(), _DTYPE_CODES[q.dtype], B,
+            C, nh, d, ps, page_table.shape[1], q.stride(0), q.stride(1),
+            q.stride(2), int(q_offset), float(scale),
+            torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(err, "ragged_prefill_attention")
+    prefill_launches += 1
+    return out
+
+
+def ragged_prefill_attention(q, k_pages, v_pages, page_table, q_offset,
+                             scale=None):
+    """Chunk prefill attention through the page table, the kernel path of
+    :func:`paged_prefill_attention` (same arguments): on CUDA the kernel
+    walks each sequence's pages up to the last position its chunk can see
+    and never gathers the pool dense; the scale multiplies the f32 scores
+    and P is rounded to V's dtype before P.V, as in the TPU kernel. Needs
+    ``num_heads == num_kv_heads``. ``q_offset`` is an int (>= 0)."""
+    nh, nkv = q.shape[2], k_pages.shape[2]
+    if nh != nkv:
+        raise ValueError(f"ragged_prefill_attention needs num_heads ({nh}) "
+                         f"== num_kv_heads ({nkv})")
+    if int(q_offset) < 0:
+        raise ValueError(f"q_offset {q_offset} must be >= 0")
+    ts = (q, k_pages, v_pages, page_table)
+    if all(t.device.type == "cpu" for t in ts):
+        return paged_prefill_attention(q, k_pages, v_pages, page_table,
+                                       q_offset, scale)
+    if not q.is_cuda:
+        raise ValueError(f"chunk prefill runs on CUDA or CPU tensors, got "
+                         f"{q.device}")
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[-1])
+    return _launch_prefill(q, k_pages, v_pages, page_table, q_offset, scale)

@@ -1,16 +1,22 @@
 """Continuous batching: admit/evict every step over bucketed decode shapes
 (counterpart of ``paddle_tpu/serving/scheduler.py``, core loop).
 
-The scheduler owns the request lifecycle (queued → running → finished)
-and drives the engine one decode step at a time:
+The scheduler owns the request lifecycle (queued → [prefilling →]
+running → finished) and drives the engine one decode step at a time:
 
 1. **evict** — sequences that hit ``max_new_tokens`` (or the optional
-   EOS id) release their pages back to the pool;
-2. **admit** — queued requests prefill (allocating pages) while a free
-   batch slot exists AND the pool can hold the request's *full*
-   completion (prompt + max_new, reserved up front, so a running
-   sequence can never run the pool out of pages mid-decode);
-3. **decode** — the active set, in admission order, runs one step of the
+   EOS id) release their pages back to the pool (publishing them to the
+   engine's prefix cache, where it has one);
+2. **admit** — while a free batch slot exists AND the pool can hold the
+   request's *full* completion (prompt + max_new, reserved up front, so a
+   running sequence can never run the pool out of pages mid-decode;
+   cached pages are reclaimed for it when free pages fall short), a
+   queued request prefills in one go, or on a chunked engine moves to the
+   prefilling set;
+3. **prefill** (chunked engines) — at most ``prefill_token_budget``
+   prompt tokens of chunks, head of line first, so a long prompt delays a
+   decode step by a bounded amount;
+4. **decode** — the active set, in admission order, runs one step of the
    smallest batch bucket that fits.
 
 Not ported yet (ROADMAP.md, Queue 1, 'Serving: scheduler features'): SLO
@@ -43,10 +49,13 @@ class Request:
     first_token_time: float | None = None
     finish_time: float | None = None
     prefill_s: float | None = None     # measured prefill walltime
+    cached_prefix_len: int = 0         # prompt tokens reused from cache
+    prefill_chunks: int = 0            # chunk program invocations
     retry_after_s: float | None = None  # backpressure hint on rejects
     tokens: list = field(default_factory=list)   # generated ids
     token_times: list = field(default_factory=list)  # decode-step seconds
-    state: str = "queued"              # queued|running|finished|rejected
+    state: str = "queued"              # queued|prefilling|running|
+    #                                    finished|rejected
     reject_reason: str | None = None   # max_new<1|too_long|retry_after|
     #                                    pool_too_small
 
@@ -82,6 +91,8 @@ class Request:
                "new_tokens": len(self.tokens),
                "queue_wait_s": queue_wait, "ttft_s": ttft,
                "prefill_s": self.prefill_s,
+               "cached_prefix_len": self.cached_prefix_len,
+               "prefill_chunks": self.prefill_chunks,
                "decode_s": decode_s, "total_s": total_s,
                "decode_tokens_per_sec": tps}
         if self.retry_after_s is not None:
@@ -95,13 +106,23 @@ class Request:
 
 class ContinuousBatchingScheduler:
     def __init__(self, engine, max_queue: int = 1024,
-                 max_retained: int = 4096):
+                 max_retained: int = 4096, prefill_token_budget=None):
         self.engine = engine
         self.buckets = tuple(engine.decode_buckets)
         self.max_concurrency = self.buckets[-1]
         self.max_queue = int(max_queue)
         self._queue: deque = deque()
         self._running: dict = {}          # rid -> Request, insertion order
+        self._prefilling: dict = {}       # rid -> Request (chunked engines)
+        self._begun: set = set()          # rids whose prefill has pages
+        # a chunked engine interleaves prefill with decode: each tick
+        # spends at most this many prompt tokens (chunk-granular; one
+        # chunk, the default, is the tightest bound on a decode stall)
+        self.chunked = getattr(engine, "prefill_chunk", None) is not None
+        self.prefill_token_budget = int(prefill_token_budget) \
+            if prefill_token_budget else (engine.prefill_chunk
+                                          if self.chunked else None)
+        self.prefill_tokens_per_tick: list = []
         self._reserved_pages = 0          # pages promised, not yet alloc'd
         self._rid = itertools.count()
         # terminal requests kept for run()/status consumers, bounded to
@@ -152,7 +173,17 @@ class ContinuousBatchingScheduler:
 
     @property
     def pending(self) -> int:
-        return len(self._queue) + len(self._running)
+        return len(self._queue) + len(self._prefilling) \
+            + len(self._running)
+
+    def _cache_hit_tokens(self, prompt) -> int:
+        """Prompt tokens the engine's prefix cache would serve, probed
+        without side effects (``match`` moves no refcounts and records no
+        stats); 0 without a cache."""
+        cache = getattr(self.engine, "prefix_cache", None)
+        if cache is None:
+            return 0
+        return int(cache.match(prompt)[2])
 
     def _retry_after_estimate(self) -> float:
         """Time for the present backlog to drain at the observed
@@ -182,12 +213,23 @@ class ContinuousBatchingScheduler:
             self.finished.append(r)
             del self.finished[:-self.max_retained]
 
+    def _page_room(self, need: int) -> bool:
+        """Do the free pages, less the reservations, cover ``need``? Short
+        of that, the engine reclaims prefix-cache pages first (LRU): cached
+        pages are free capacity until a request needs them."""
+        avail = self.engine.pool.free_pages - self._reserved_pages
+        if avail < need:
+            avail += self.engine.reclaim_cache_pages(need - avail)
+        return avail >= need
+
     def _admit(self):
+        if self.chunked:
+            return self._admit_chunked()
         pool = self.engine.pool
         while self._queue and len(self._running) < self.max_concurrency:
             r = self._queue[0]
             need = self._completion_pages(r)
-            if pool.free_pages - self._reserved_pages < need:
+            if not self._page_room(need):
                 break  # head-of-line: keep arrival order deterministic
             self._queue.popleft()
             r.admit_time = time.perf_counter()
@@ -200,16 +242,67 @@ class ContinuousBatchingScheduler:
             r.first_token_time = t_done
             self._running[r.rid] = r
 
+    def _admit_chunked(self):
+        """Chunked admission: reserve the full completion and hand the
+        request to the prefill phase. Its pages and its prefix-cache match
+        come at its first chunk, so a same-prefix request ahead of it in
+        the queue has published its pages by then."""
+        while self._queue and (len(self._running) + len(self._prefilling)
+                               < self.max_concurrency):
+            r = self._queue[0]
+            need = self._completion_pages(r)
+            if not self._page_room(need):
+                break  # head-of-line: keep arrival order deterministic
+            self._queue.popleft()
+            r.admit_time = time.perf_counter()
+            r.state = "prefilling"
+            r.prefill_s = 0.0
+            self._reserved_pages += need
+            self._prefilling[r.rid] = r
+
+    def _prefill_tick(self):
+        """Spend the tick's prefill token budget on the prefilling requests,
+        head of line first, one chunk at a time: the decode step after it
+        waits for at most ``prefill_token_budget`` tokens of prefill work
+        (chunk-granular), never for a whole long prompt."""
+        eng = self.engine
+        spent = 0
+        while self._prefilling and spent < self.prefill_token_budget:
+            rid, r = next(iter(self._prefilling.items()))
+            t0 = time.perf_counter()
+            if rid not in self._begun:
+                r.cached_prefix_len = eng.prefill_begin(rid, r.prompt)
+                self._begun.add(rid)
+                self._reserved_pages -= len(eng.pool.table(rid))
+            processed, done, tok = eng.prefill_step(rid)
+            spent += processed
+            r.prefill_s += time.perf_counter() - t0
+            r.prefill_chunks += 1
+            if not done:
+                continue
+            del self._prefilling[rid]
+            self._begun.discard(rid)
+            r.tokens.append(tok)
+            r.state = "running"
+            r.first_token_time = time.perf_counter()
+            self._running[rid] = r
+        if spent:
+            self.prefill_tokens_per_tick.append(spent)
+
     def step(self) -> bool:
-        """One scheduler tick (evict → admit → one bucketed decode step).
-        Returns False when idle (nothing queued or running)."""
+        """One scheduler tick (evict → admit → [prefill chunks →] one
+        bucketed decode step). Returns False when idle (nothing queued,
+        prefilling or running)."""
         with self._lock:
             self._evict_finished()
             self._admit()
+            if self.chunked:
+                self._prefill_tick()
             # admission may have finished short requests (max_new=1)
             active = [r for r in self._running.values() if not r.done]
             if not active:
-                return bool(self._queue or self._running)
+                return bool(self._queue or self._prefilling
+                            or self._running)
             t0 = time.perf_counter()
             bucket = self.engine.decode_bucket(len(active))
             pool = self.engine.pool

@@ -11,6 +11,7 @@ import pytest
 import torch
 
 from paddle_tpu_torch.kernels import flash_attention as tfa
+from paddle_tpu_torch.kernels import int8_matmul as tim
 from paddle_tpu_torch.kernels import paged_attention as tpa
 from paddle_tpu_torch.models import gpt as tgpt
 from paddle_tpu_torch.serving import ContinuousBatchingScheduler, ServingEngine
@@ -227,3 +228,105 @@ def test_train_step_on_cuda_matches_cpu():
     # f32 on both; the sums run in other orders
     np.testing.assert_allclose(losses["cuda"], losses["cpu"], rtol=0,
                                atol=1e-4)
+
+
+def _prefill_inputs(dev, dt, B, C, nh, d, ps, pps, seed):
+    """q [B, C, nh, d] as the q view of a fused [B, C, 3, nh, d] projection,
+    a pool of B * pps + 1 shuffled pages and its page table."""
+    npg = B * pps + 1
+    qkv = torch.from_numpy(_rand((B, C, 3, nh, d), seed)).to(dev, dt)
+    kp = torch.from_numpy(_rand((npg, ps, nh, d), seed + 1)).to(dev, dt)
+    vp = torch.from_numpy(_rand((npg, ps, nh, d), seed + 2)).to(dev, dt)
+    perm = np.random.default_rng(seed).permutation(np.arange(1, npg))
+    pt = torch.from_numpy(perm.reshape(B, pps).astype(np.int32)).to(dev)
+    return qkv[:, :, 0], kp, vp, pt
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("C,d,ps,pps,q_offset", [
+    (256, 128, 64, 16, 768), (256, 128, 64, 16, 0), (100, 64, 16, 12, 37),
+    (64, 128, 8, 24, 120)])
+def test_prefill_kernel_matches_plain(dtype, C, d, ps, pps, q_offset):
+    """Chunk prefill at offsets 0, mid-page and late (pages past the chunk
+    skipped), a ragged chunk and d = 64, against the plain version."""
+    dev = _cuda()
+    dt = getattr(torch, dtype)
+    q, kp, vp, pt = _prefill_inputs(dev, dt, 2, C, 4, d, ps, pps, 11)
+    n0 = tpa.prefill_launches
+    out = tpa.ragged_prefill_attention(q, kp, vp, pt, q_offset)
+    torch.cuda.synchronize()
+    assert tpa.prefill_launches == n0 + 1
+    ref = tpa.paged_prefill_attention(q, kp, vp, pt, q_offset)
+    torch.testing.assert_close(out.float(), ref.float(), rtol=TOL[dtype],
+                               atol=TOL[dtype])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("layout", ["kn", "nk"])
+@pytest.mark.parametrize("M,K,N", [(1, 1024, 3072), (8, 1024, 1024),
+                                   (3, 4096, 1024), (256, 1024, 4096),
+                                   (5, 100, 77), (1, 1024, 50304)])
+def test_int8_kernel_matches_plain(dtype, layout, M, K, N):
+    dev = _cuda()
+    dt = getattr(torch, dtype)
+    rng = np.random.default_rng(M + K + N)
+    x = torch.from_numpy(_rand((M, K), 3)).to(dev, dt)
+    shape = (K, N) if layout == "kn" else (N, K)
+    w = torch.from_numpy(rng.integers(-128, 128, shape).astype(np.int8)).to(dev)
+    s = torch.from_numpy(rng.uniform(1e-3, 2e-2, N).astype(np.float32)).to(dev)
+    n0 = tim.launches
+    out = tim.int8_matmul(x, w, s, layout=layout)
+    out2 = tim.int8_matmul(x, w, s, layout=layout)
+    torch.cuda.synchronize()
+    assert tim.launches == n0 + 2
+    assert torch.equal(out, out2)           # the split-K sum is deterministic
+    ref = tim.int8_matmul_reference(x, w, s, layout)
+    tol = 1e-4 if dtype == "float32" else 1e-2
+    torch.testing.assert_close(out.float(), ref.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", [
+    dict(prefill_chunk=32), dict(prefix_cache=True, prefill_chunk=32),
+    dict(quantize="int8"),
+    dict(quantize="int8", prefix_cache=True, prefill_chunk=32)])
+def test_engine_modes_on_cuda_match_cpu(mode):
+    """Chunked prefill, the prefix cache and int8 weights, alone and
+    combined, on the card (f32) give the CPU engine's greedy tokens; every
+    chunk layer launched the chunk-prefill kernel and every int8 matmul
+    the int8 kernel."""
+    _cuda()
+    from paddle_tpu_torch.serving import make_shared_prefix_workload
+    cfg = tgpt.gpt_tiny_config(hidden_size=128, num_heads=2)
+    model = tgpt.GPTForPretraining(tgpt.GPTModel(cfg, seed=0, device="cpu"))
+    prompts = make_shared_prefix_workload(
+        cfg.vocab_size, 5, prefix_len=40, suffix_len=9, seed=2,
+        divergence_offsets=(0, 0, 7))
+    outs = []
+    for dev in ("cpu", "cuda"):
+        eng = ServingEngine(model, page_size=16, decode_buckets=(1, 2, 4),
+                            device=dev, **mode)
+        sched = ContinuousBatchingScheduler(eng)
+        n_pre, n_int8 = tpa.prefill_launches, tim.launches
+        reqs = [sched.submit(p, max_new_tokens=5) for p in prompts]
+        sched.run()
+        assert all(r.state == "finished" for r in reqs)
+        outs.append([r.output_ids for r in reqs])
+        if dev == "cpu":
+            continue
+        L = cfg.num_layers
+        chunks = sum(r.prefill_chunks for r in reqs)
+        want_pre = L * chunks if eng.prefill_chunk else 0
+        assert tpa.prefill_launches - n_pre == want_pre
+        if mode.get("quantize"):
+            # 4 matmuls a layer and the logits per decode step and chunk;
+            # a bucketed prefill runs the int8 kernel for its logits only
+            want = (4 * L + 1) * (sched.steps + chunks) if eng.prefill_chunk \
+                else (4 * L + 1) * sched.steps + len(reqs)
+            assert tim.launches - n_int8 == want
+        if mode.get("prefix_cache"):
+            assert [r.cached_prefix_len for r in reqs][:3] == [0, 40, 33]
+    for a, b in zip(*outs):
+        np.testing.assert_array_equal(a, b)

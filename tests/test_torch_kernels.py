@@ -14,9 +14,11 @@ import pytest
 import torch
 
 from paddle_tpu.kernels import flash_attention as jfa
+from paddle_tpu.kernels import int8_matmul as jim
 from paddle_tpu.kernels import paged_attention as jpa
 from paddle_tpu_torch.kernels import _build
 from paddle_tpu_torch.kernels import flash_attention as tfa
+from paddle_tpu_torch.kernels import int8_matmul as tim
 from paddle_tpu_torch.kernels import paged_attention as tpa
 
 TOL = dict(rtol=2e-5, atol=2e-5)
@@ -247,3 +249,82 @@ def test_flash_bwd_refuses_mixed_devices():
     o, lse = tfa.flash_attention_fwd(*t, causal=True)
     with pytest.raises(ValueError, match="CUDA or CPU"):
         tfa.flash_attention_bwd(*t, o, lse.to("meta"), o, causal=True)
+
+
+# ---------------------------------------------------------- chunk prefill
+
+def _prefill_case(seed=20):
+    """Two sequences of a 4-head pool (d = 16, page 8); the second maps the
+    first's two leading pages (a shared prefix) and then its own."""
+    B, C, nh, d, ps, pps = 2, 16, 4, 16, 8, 6
+    npg = B * pps + 1
+    pt = np.arange(1, npg, dtype=np.int32).reshape(B, pps)
+    pt[1, :2] = pt[0, :2]
+    return (_rand((B, C, nh, d), seed), _rand((npg, ps, nh, d), seed + 1),
+            _rand((npg, ps, nh, d), seed + 2), pt)
+
+
+@pytest.mark.parametrize("q_offset", [0, 5, 16, 27, 32])
+def test_prefill_plain_matches_jax(q_offset):
+    """The port's chunk prefill on the CPU (its plain version, the XLA
+    path) against the JAX Pallas kernel in interpret mode and the JAX XLA
+    path, f32, at offsets 0, mid-page, page-aligned and late (the last
+    pages of the table skipped by the kernel)."""
+    arrays = _prefill_case()
+    kern = jpa.ragged_prefill_attention(*map(jnp.asarray, arrays), q_offset,
+                                        interpret=True)
+    xla = jpa.paged_prefill_attention(*map(jnp.asarray, arrays), q_offset)
+    t = [torch.from_numpy(a) for a in arrays]
+    out = tpa.ragged_prefill_attention(*t, q_offset).numpy()
+    np.testing.assert_allclose(out, np.asarray(kern), rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(out, np.asarray(xla), rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(
+        tpa.paged_prefill_attention(*t, q_offset, scale=0.3).numpy(),
+        np.asarray(jpa.paged_prefill_attention(
+            *map(jnp.asarray, arrays), q_offset, scale=0.3)),
+        rtol=1e-5, atol=1e-5)
+
+
+def test_prefill_plain_bf16_matches_jax_xla():
+    """bf16: the port's plain version against the JAX XLA path in bf16.
+    Both round the scores, the softmax output and P.V to bf16 at the same
+    points (they agree bit for bit here); the limit is one bf16 spacing
+    at the outputs' magnitude (|out| < 2, spacing 2^-7), for sums taken
+    in another order."""
+    arrays = _prefill_case(seed=30)
+    q, kp, vp, pt = arrays
+    jx = [jnp.asarray(a).astype(jnp.bfloat16) for a in (q, kp, vp)]
+    xla = jpa.paged_prefill_attention(*jx, jnp.asarray(pt), 19)
+    t = [torch.from_numpy(a).to(torch.bfloat16) for a in (q, kp, vp)]
+    out = tpa.ragged_prefill_attention(*t, torch.from_numpy(pt), 19)
+    np.testing.assert_allclose(out.float().numpy(),
+                               np.asarray(xla, np.float32), rtol=0,
+                               atol=2 ** -7)
+
+
+# ------------------------------------------------------------ int8 matmul
+
+@pytest.mark.parametrize("M,K,N", [(1, 64, 96), (3, 100, 77), (8, 48, 130),
+                                   (37, 16, 5)])
+@pytest.mark.parametrize("layout", ["kn", "nk"])
+def test_int8_plain_matches_jax_kernel(M, K, N, layout):
+    """The port's int8 matmul on the CPU (its plain version) against the
+    JAX Pallas kernel in interpret mode, both weight layouts (the JAX
+    kernel takes [K, N]; the "nk" weight is its transpose), odd shapes."""
+    rng = np.random.default_rng(M * K + N)
+    x = _rand((M, K), 40)
+    w = rng.integers(-128, 128, (K, N)).astype(np.int8)
+    s = rng.uniform(1e-3, 2e-2, N).astype(np.float32)
+    ref = np.asarray(jim.int8_matmul(jnp.asarray(x), jnp.asarray(w),
+                                     jnp.asarray(s), interpret=True))
+    tw = torch.from_numpy(w if layout == "kn" else np.ascontiguousarray(w.T))
+    out = tim.int8_matmul(torch.from_numpy(x), tw, torch.from_numpy(s),
+                          layout=layout).numpy()
+    np.testing.assert_allclose(out, ref, rtol=1e-5, atol=1e-5)
+    # bf16 x: the f32 sum times the f32 scale, rounded once (a sum in
+    # another order may round the other way: one bf16 spacing)
+    xb = torch.from_numpy(x).to(torch.bfloat16)
+    bf = tim.int8_matmul(xb, tw, torch.from_numpy(s), layout=layout)
+    want = torch.from_numpy(xb.float().numpy() @ w.astype(np.float32) * s)
+    assert bf.dtype == torch.bfloat16
+    torch.testing.assert_close(bf.float(), want, rtol=2 ** -8, atol=1e-6)
