@@ -32,7 +32,10 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _LAYOUTS = {"kn": 0, "nk": 1}
 # the kernel's tiling (csrc/int8_matmul.cu): 8 rows of x and 128 columns
 # per "kn" block; K is split across blocks only while the grid of tiles is
-# smaller than the card, in chunks of at least 256 and at most 4096 rows
+# smaller than the card, in chunks of at least 256 and at most 4096 rows.
+# At M = 8 on an H100 the split runs the GPT-345M block shapes in 15-16 us
+# where one block per tile over the whole of K takes 28-95 us
+# (chip_smoke.py, phase int8).
 _MT, _BN, _MIN_CHUNK, _MAX_CHUNK, _SMS = 8, 128, 256, 4096, 132
 
 # kernel launches since the counter was last set to 0
@@ -82,7 +85,9 @@ def _tickets(dev, stream, n):
     return buf
 
 
-def _launch(x, w, scale, layout, M, N, K):
+def _launch(x, w, scale, layout, M, N, K, ksplit=None):
+    """Launch the kernel; ``ksplit`` overrides the split of K across
+    blocks (``"kn"`` only; 1 runs one block per tile over the whole K)."""
     global launches
     dev = x.device
     for name, t in (("w", w), ("scale", scale)):
@@ -99,7 +104,8 @@ def _launch(x, w, scale, layout, M, N, K):
                          "scale, and x with unit stride along K")
     if max(M * max(K, x.stride(0)), K * N) >= 2 ** 31:
         raise ValueError("int8 matmul operands too large for 32-bit strides")
-    ksplit = _ksplit(M, N, K, layout)
+    if ksplit is None:
+        ksplit = _ksplit(M, N, K, layout)
     if math.ceil(M / _MT) > 65535:
         raise ValueError(f"M {M} exceeds the grid limit")
     out = torch.empty((M, N), dtype=x.dtype, device=dev)

@@ -8,7 +8,9 @@ replace the two Pallas kernels there:
   per sequence, :func:`paged_attention_decode`;
 - ``csrc/paged_attention_prefill.cu`` (``_prefill_kernel``): a prompt
   chunk at a runtime offset, :func:`ragged_prefill_attention`, whose
-  plain version is the XLA path :func:`paged_prefill_attention`.
+  plain version is the XLA path :func:`paged_prefill_attention`;
+  :func:`ragged_prefill_reference` is a second plain version that keeps
+  the kernel's own rounding points, to hold the bf16 kernel tightly.
 
 Layout contract, as in the JAX package:
 
@@ -38,7 +40,7 @@ from . import _build
 
 __all__ = ["paged_attention_decode", "paged_attention_reference",
            "ragged_prefill_attention", "paged_prefill_attention",
-           "KERNEL_HEAD_DIMS"]
+           "ragged_prefill_reference", "KERNEL_HEAD_DIMS"]
 
 KERNEL_HEAD_DIMS = (64, 128)
 _NEG_INF = -1e30
@@ -190,6 +192,44 @@ def paged_prefill_attention(q, k_pages, v_pages, page_table, q_offset,
     logits = logits.masked_fill(~(col <= row), _NEG_INF)
     probs = torch.softmax(logits.float(), -1).to(q.dtype)
     return torch.einsum("bnst,btnd->bsnd", probs, v)
+
+
+def ragged_prefill_reference(q, k_pages, v_pages, page_table, q_offset,
+                             scale=None, block=64, round_p=True):
+    """Plain PyTorch version of the chunk-prefill kernel with the kernel's
+    own rounding points (same arguments as :func:`paged_prefill_attention`,
+    ``num_heads == num_kv_heads``): positions in blocks of ``block`` (the
+    CUDA kernel's tile; the TPU kernel's block is a page), an f32 online
+    softmax over the blocks, S = Q.K^T in f32 times ``scale`` in f32, P =
+    exp(S - m) rounded to V's dtype before P.V while l sums the unrounded
+    P, O = acc / max(l, 1e-30) rounded once. ``round_p=False`` keeps P in
+    f32: a control that a bf16 limit must tell from the kernel."""
+    B, C, nh, d = q.shape
+    ps = k_pages.shape[1]
+    if scale is None:
+        scale = 1.0 / math.sqrt(d)
+    t = min(page_table.shape[1] * ps, int(q_offset) + C)
+    idx = page_table.long()
+    k = k_pages[idx].reshape(B, -1, nh, d)[:, :t].float()
+    v = v_pages[idx].reshape(B, -1, nh, d)[:, :t]
+    qf = q.float()
+    row = int(q_offset) + torch.arange(C, device=q.device)[:, None]
+    m = torch.full((B, nh, C, 1), _NEG_INF, device=q.device)
+    l = torch.zeros((B, nh, C, 1), device=q.device)
+    acc = torch.zeros((B, nh, C, d), device=q.device)
+    for k0 in range(0, t, block):
+        s = torch.einsum("bsnd,btnd->bnst", qf, k[:, k0:k0 + block]) * scale
+        col = k0 + torch.arange(s.shape[-1], device=q.device)[None, :]
+        s = s.masked_fill(~(col <= row), _NEG_INF)
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        p = torch.exp(s - m_new)
+        corr = torch.exp(m - m_new)
+        l = corr * l + p.sum(-1, keepdim=True)
+        pv = p.to(v.dtype).float() if round_p else p
+        acc = corr * acc + torch.einsum("bnst,btnd->bnsd", pv,
+                                        v[:, k0:k0 + block].float())
+        m = m_new
+    return (acc / l.clamp_min(1e-30)).transpose(1, 2).to(q.dtype)
 
 
 def _launch_prefill(q, k_pages, v_pages, page_table, q_offset, scale):

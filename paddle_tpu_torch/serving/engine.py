@@ -124,6 +124,30 @@ def _compute_dtype(params, compute_dtype):
     return wte["s"].dtype if is_quantized(wte) else wte.dtype
 
 
+def _paged_layer(p, x, rows, k_pages, v_pages, attend, eps):
+    """One decoder layer of the paged step functions on ``x [B, T, H]``:
+    the new K/V (``T`` rows of each of ``B`` sequences) enter the layer's
+    pages at ``rows [B * T]`` before ``attend(q, k_pages, v_pages)``
+    (``q [B, T, nh, d]`` -> ``[B, T, nh, d]``) reads them; the block
+    matmuls go through :func:`_mm`. ``k_pages``/``v_pages`` are one
+    layer's pages, updated in place. Returns the layer's output."""
+    B, T, H = x.shape
+    nh, d = k_pages.shape[2:]
+    h = _ln(x, p["ln1_w"], p["ln1_b"], eps)
+    qkv = _mm(h, _kn(p["wqkv"], H)).reshape(B, T, 3, nh, d) + p["bqkv"]
+    q, k, v = qkv.unbind(2)                              # [B, T, nh, d]
+    k_pages.view(-1, nh, d).index_copy_(
+        0, rows, k.reshape(-1, nh, d).to(k_pages.dtype))
+    v_pages.view(-1, nh, d).index_copy_(
+        0, rows, v.reshape(-1, nh, d).to(v_pages.dtype))
+    attn = attend(q, k_pages, v_pages)
+    o = _mm(attn.to(x.dtype).reshape(B, T, nh * d), _kn(p["wo"], nh * d))
+    x = x + o + p["bo"]
+    h2 = _ln(x, p["ln2_w"], p["ln2_b"], eps)
+    u = F.gelu(_mm(h2, p["w1"]) + p["b1"], approximate="tanh")
+    return x + _mm(u, p["w2"]) + p["b2"]
+
+
 def decode_step_fn(params, k_pages, v_pages, tokens, positions, page_table,
                    seq_lens, generator=None, *, eps, temperature, top_k,
                    compute_dtype=None):
@@ -139,9 +163,7 @@ def decode_step_fn(params, k_pages, v_pages, tokens, positions, page_table,
     blocks, wte, wpe = params["blocks"], params["wte"], params["wpe"]
     dt = _compute_dtype(params, compute_dtype)
     B = tokens.shape[0]
-    L, np_, ps, nkv, d = k_pages.shape
-    H = params["lnf_w"].shape[0]
-    nh = nkv
+    ps = k_pages.shape[2]
     pos = positions.long().clamp_min(0)
     page_table = page_table.to(torch.int32)
     seq_lens = seq_lens.to(torch.int32)
@@ -152,23 +174,13 @@ def decode_step_fn(params, k_pages, v_pages, tokens, positions, page_table,
     # page 0 is never read unmasked.
     rows = page_table[torch.arange(B, device=pos.device), pos // ps].long() \
         * ps + pos % ps
-    for i in range(L):
-        p = _layer(blocks, i)
-        h = _ln(x, p["ln1_w"], p["ln1_b"], eps)
-        qkv = _mm(h, _kn(p["wqkv"], H)).reshape(B, 1, 3, nh, d) + p["bqkv"]
-        q, k, v = qkv[:, 0, 0], qkv[:, 0, 1], qkv[:, 0, 2]   # [B, nh, d]
-        # the new K/V enter the pool before attention reads it
-        k_pages[i].view(np_ * ps, nkv, d).index_copy_(
-            0, rows, k.to(k_pages.dtype))
-        v_pages[i].view(np_ * ps, nkv, d).index_copy_(
-            0, rows, v.to(v_pages.dtype))
-        attn = paged_attention_decode(q, k_pages[i], v_pages[i],
-                                      page_table, seq_lens)
-        o = _mm(attn.to(x.dtype).reshape(B, nh * d), _kn(p["wo"], nh * d))
-        x = x + o[:, None, :] + p["bo"]
-        h2 = _ln(x, p["ln2_w"], p["ln2_b"], eps)
-        u = F.gelu(_mm(h2, p["w1"]) + p["b1"], approximate="tanh")
-        x = x + _mm(u, p["w2"]) + p["b2"]
+
+    def attend(q, kp, vp):
+        return paged_attention_decode(q[:, 0], kp, vp, page_table,
+                                      seq_lens)[:, None]
+    for i in range(k_pages.shape[0]):
+        x = _paged_layer(_layer(blocks, i), x, rows, k_pages[i], v_pages[i],
+                         attend, eps)
     h = _ln(x, params["lnf_w"], params["lnf_b"], eps)
     return sample_logits(_logits(h, wte), generator, temperature,
                          top_k).to(torch.int32)
@@ -221,9 +233,6 @@ def chunk_prefill_fn(params, k_pages, v_pages, ids, q_offset, chunk_len,
     blocks, wte, wpe = params["blocks"], params["wte"], params["wpe"]
     dt = _compute_dtype(params, compute_dtype)
     C = ids.shape[1]
-    L, np_, ps, nkv, d = k_pages.shape
-    H = params["lnf_w"].shape[0]
-    nh = nkv
     q_offset = int(q_offset)
     max_pos = (wpe["q"] if is_quantized(wpe) else wpe).shape[0]
     positions = (q_offset + torch.arange(C, device=ids.device)).clamp_max(
@@ -231,22 +240,12 @@ def chunk_prefill_fn(params, k_pages, v_pages, ids, q_offset, chunk_len,
     x = (_emb(wte, ids.long(), dt) + _emb(wpe, positions, dt)[None]).to(dt)
     rows = dest_rows.long()
     page_table = page_table.to(torch.int32)
-    for i in range(L):
-        p = _layer(blocks, i)
-        h = _ln(x, p["ln1_w"], p["ln1_b"], eps)
-        qkv = _mm(h, _kn(p["wqkv"], H)).reshape(1, C, 3, nh, d) + p["bqkv"]
-        q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]   # [1, C, nh, d]
-        k_pages[i].view(np_ * ps, nkv, d).index_copy_(
-            0, rows, k[0].to(k_pages.dtype))
-        v_pages[i].view(np_ * ps, nkv, d).index_copy_(
-            0, rows, v[0].to(v_pages.dtype))
-        attn = ragged_prefill_attention(q, k_pages[i], v_pages[i],
-                                        page_table, q_offset)
-        o = _mm(attn.to(x.dtype).reshape(1, C, nh * d), _kn(p["wo"], nh * d))
-        x = x + o + p["bo"]
-        h2 = _ln(x, p["ln2_w"], p["ln2_b"], eps)
-        u = F.gelu(_mm(h2, p["w1"]) + p["b1"], approximate="tanh")
-        x = x + _mm(u, p["w2"]) + p["b2"]
+
+    def attend(q, kp, vp):
+        return ragged_prefill_attention(q, kp, vp, page_table, q_offset)
+    for i in range(k_pages.shape[0]):
+        x = _paged_layer(_layer(blocks, i), x, rows, k_pages[i], v_pages[i],
+                         attend, eps)
     last = max(int(chunk_len) - 1, 0)
     h_last = _ln(x[:, last:last + 1], params["lnf_w"], params["lnf_b"], eps)
     return sample_logits(_logits(h_last, wte), generator, temperature,

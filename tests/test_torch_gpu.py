@@ -262,6 +262,36 @@ def test_prefill_kernel_matches_plain(dtype, C, d, ps, pps, q_offset):
                                atol=TOL[dtype])
 
 
+def _rms_share(out, ref):
+    ref = ref.float()
+    return ((out.float() - ref).square().mean().sqrt()
+            / ref.square().mean().sqrt()).item()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("C,d,ps,pps,q_offset", [
+    (256, 128, 64, 16, 768), (256, 128, 64, 16, 0), (100, 64, 16, 12, 37),
+    (64, 128, 8, 24, 120)])
+def test_prefill_kernel_matches_tiled_reference(C, d, ps, pps, q_offset):
+    """bf16 chunk prefill against the plain version with the kernel's own
+    rounding points (f32 scores times the scale, P rounded to bf16 per
+    64-position tile): rms(out - ref) / rms(ref) <= 1e-4 and the largest
+    error at most one bf16 spacing of the largest output (2^-7 of max
+    |ref|). The same plain version without the rounding of P must exceed
+    the rms limit, so the limit sees where P is rounded."""
+    dev = _cuda()
+    q, kp, vp, pt = _prefill_inputs(dev, torch.bfloat16, 2, C, 4, d, ps, pps,
+                                    11)
+    out = tpa.ragged_prefill_attention(q, kp, vp, pt, q_offset)
+    ref = tpa.ragged_prefill_reference(q, kp, vp, pt, q_offset)
+    ctl = tpa.ragged_prefill_reference(q, kp, vp, pt, q_offset,
+                                       round_p=False)
+    assert _rms_share(out, ref) <= 1e-4
+    assert (out.float() - ref.float()).abs().max().item() \
+        <= 2 ** -7 * ref.float().abs().max().item()
+    assert _rms_share(ctl, ref) > 1e-4
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("layout", ["kn", "nk"])

@@ -302,6 +302,42 @@ def test_prefill_plain_bf16_matches_jax_xla():
                                atol=2 ** -7)
 
 
+def _rms(a):
+    return float(np.sqrt(np.mean(np.square(a, dtype=np.float64))))
+
+
+@pytest.mark.parametrize("q_offset", [0, 5, 16, 27, 32])
+def test_prefill_tiled_reference_matches_jax_kernel(q_offset):
+    """The plain version with the kernel's rounding points (positions in
+    blocks of a page, f32 online softmax, P rounded to bf16 before P.V)
+    against the JAX Pallas kernel in interpret mode: f32 at 1e-5; bf16
+    with rms(out - ref) / rms(ref) <= 2e-4 and the largest error at most
+    one bf16 spacing of the largest output (2^-7 of max |ref|), for sums
+    in another order (they agree bit for bit here). The control, the same
+    without the rounding of P, must exceed that rms limit (it reads
+    1.4e-3 to 2.1e-3 here), or the limit could not see P's rounding."""
+    arrays = _prefill_case()
+    ps = arrays[1].shape[1]
+    kern = jpa.ragged_prefill_attention(*map(jnp.asarray, arrays), q_offset,
+                                        interpret=True)
+    t = [torch.from_numpy(a) for a in arrays]
+    np.testing.assert_allclose(
+        tpa.ragged_prefill_reference(*t, q_offset, block=ps).numpy(),
+        np.asarray(kern), rtol=1e-5, atol=1e-5)
+    jb = [jnp.asarray(a).astype(jnp.bfloat16) for a in arrays[:3]]
+    want = np.asarray(jpa.ragged_prefill_attention(
+        *jb, jnp.asarray(arrays[3]), q_offset, interpret=True), np.float32)
+    tb = [torch.from_numpy(a).to(torch.bfloat16) for a in arrays[:3]]
+    got = tpa.ragged_prefill_reference(*tb, t[3], q_offset, block=ps)
+    ctl = tpa.ragged_prefill_reference(*tb, t[3], q_offset, block=ps,
+                                       round_p=False)
+    assert got.dtype == torch.bfloat16
+    err = got.float().numpy() - want
+    assert _rms(err) <= 2e-4 * _rms(want)
+    assert np.abs(err).max() <= 2 ** -7 * np.abs(want).max()
+    assert _rms(ctl.float().numpy() - want) > 2e-4 * _rms(want)
+
+
 # ------------------------------------------------------------ int8 matmul
 
 @pytest.mark.parametrize("M,K,N", [(1, 64, 96), (3, 100, 77), (8, 48, 130),
