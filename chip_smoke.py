@@ -2,7 +2,7 @@
 
     python3 chip_smoke.py [--json-out PATH]
 
-Ten phases, one result per line:
+Twelve phases, one result per line:
 
 1. device and build — the card's name and power limit, and the build of
    every CUDA kernel from ``paddle_tpu_torch/csrc`` with nvcc for sm_90a;
@@ -25,7 +25,14 @@ Ten phases, one result per line:
    weight shapes at M = 1, 8 and 256 and odd sizes), each timed at its
    serving shape (with the stream held, so the host's issue does not
    enter) against its bound and a PyTorch yardstick, the int8 block
-   shapes also with K not split across blocks;
+   shapes also with K not split across blocks; ``moe_dispatch`` — the
+   MoE dispatch and combine kernels against their plain versions in f32
+   and bf16 at ERNIE-MoE base width (M = 768, E = 8, top-2): the decode
+   and prefill shapes, a ragged S = 130, a capacity-dropping S = 4096,
+   every gate kind; the routing held exactly off router near ties
+   (counted and printed), the combine against the plain version with its
+   rounding points and against the einsum reference; both timed at the
+   two serving shapes with the stream held;
 4. ``serving`` — the serving main path at the full width of GPT-345M (24
    layers, hidden 1024, 8 heads of 128, vocab 50304, random weights from a
    seed): eight ragged requests through ``ServingEngine`` +
@@ -47,7 +54,17 @@ Ten phases, one result per line:
    ``quantize="int8"``: a bf16 counted run beside the float engine's and
    16 decode steps under ``torch.profiler``, then f32, where every token
    equals the argmax of the dense model on the dequantized weights;
-7. ``training`` — the training main path: ``GPTHybridTrainStep`` on
+7. ``serving_moe`` — the ERNIE-MoE serving path at the full width of
+   ``ernie_moe_base_config`` (12 layers, hidden 768, 12 heads of 64, 8
+   experts top-2 in every second layer, vocab 30522, 512 positions,
+   random weights from a seed): eight ragged requests through
+   ``MoEServingEngine`` + ``ContinuousBatchingScheduler``, page 64. bf16:
+   after a warm-up over every bucket one counted run (exact launches of
+   the dispatch, combine and paged decode kernels, none of the others),
+   then 16 decode steps under ``torch.profiler``; f32: every generated
+   token against the argmax of the eager ``ErnieMoeForPretraining``
+   (gather path, plain attention), teacher-forced under the causal mask;
+8. ``training`` — the training main path: ``GPTHybridTrainStep`` on
    GPT-345M at full width (B = 12, S = 1024, bf16 compute, f32 masters and
    moments, ``remat="dots"``), 3 warm-up and 5 timed steps on one repeated
    batch (tokens/s, step time, MFU, peak memory, every loss, and the flash
@@ -60,7 +77,7 @@ Ten phases, one result per line:
 Exits non-zero, without the final line, when CUDA is unavailable or any
 phase fails. The last line is ``{"ok": true, "device": {...}}``; the line
 before it is the card's ``nvidia-smi`` name and power limit, and before
-that one JSON object holds the per-kernel numbers (six kernels).
+that one JSON object holds the per-kernel numbers (eight kernels).
 """
 from __future__ import annotations
 
@@ -85,6 +102,27 @@ HOLD_CYCLES = 100_000_000   # ~50 ms of device sleep to hold the stream
 # the shared-prefix cell: 8 requests of a 768-token prefix and a 128-token
 # suffix, chunks of 256 and a prefill budget of 896 tokens a tick
 PREFIX_LEN, SUFFIX_LEN, N_PREFIX_REQS, CHUNK, BUDGET = 768, 128, 8, 256, 896
+# the MoE serving cell: ERNIE-MoE base, eight ragged prompts (<= 437 + 64
+# new tokens within the 512 positions)
+MOE_PROMPT_LENS = (437, 256, 350, 116, 432, 64, 197, 310)
+# the MoE kernels: (label, S, C, top_k, gate kind) at M = 768, E = 8
+MOE_M, MOE_E = 768, 8
+MOE_CASES = (("decode", 8, 8, 2, "gshard"), ("prefill", 512, 512, 2, "gshard"),
+             ("ragged", 130, 130, 2, "gshard"),
+             ("dropping", 4096, 640, 2, "gshard"),
+             ("naive", 512, 512, 2, "naive"), ("switch", 512, 512, 1, "switch"),
+             ("renorm", 512, 512, 2, "renorm"))
+# MoE dispatch: a token whose k-th and (k+1)-th logits lie within this of
+# each other is a router near tie (a rounding of the gate product may flip
+# it); off near ties the routing, comb_idx and expert_in must be exact, and
+# val, me and ce within MOE_REL of the largest |value| (f32 sums in another
+# order)
+MOE_NEAR_TIE = 1e-5
+MOE_REL = 1e-6
+# MoE combine, bf16, against the einsum reference (one rounding of an f32
+# sum, where the kernel rounds val, each product and each add to bf16):
+# (the largest |out - ref| over max |ref|, rms(out - ref) / rms(ref))
+MOE_COMBINE_EINSUM_TOL = (2 ** -6, 5e-3)
 # the GPT-345M weight shapes of the int8 kernel: (name, K, N, layout)
 INT8_SHAPES = (("wqkv", 1024, 3072, "kn"), ("wo", 1024, 1024, "kn"),
                ("w1", 1024, 4096, "kn"), ("w2", 4096, 1024, "kn"),
@@ -306,7 +344,7 @@ def phase_flash(torch, res):
          f"({by}: {flops / 1e9:.3f} GFLOP, {nbytes / 1e6:.3f} MB)")
     res["flash"] = dict(
         name="flash_attention_fwd", route="cuda",
-        source="paddle_tpu_torch/csrc/flash_attention_fwd.cu",
+        source="paddle_tpu_torch/csrc/flash_attention_fwd.cuh",
         replaces="paddle_tpu/kernels/flash_attention.py:150",
         launches=None, max_abs_err=err, ms=ms, plain_ms=plain_ms,
         bound_ms=bound_ms, bound_by=by, library_ms=lib_ms)
@@ -471,7 +509,7 @@ def phase_flash_bwd(torch, res):
              f"{flops / ms / 1e9:.2f} TFLOP/s")
         out[key] = dict(
             name=name, route="cuda",
-            source="paddle_tpu_torch/csrc/flash_attention_bwd.cu",
+            source="paddle_tpu_torch/csrc/flash_attention_bwd.cuh",
             replaces=("paddle_tpu/kernels/flash_attention.py:238"
                       if key == "flash_bwd_dq" else
                       "paddle_tpu/kernels/flash_attention.py:283"),
@@ -530,6 +568,25 @@ def phase_paged(torch, res):
             return run
         ms = _time_ms(torch, cycling(pa.paged_attention_decode), 200)
         plain_ms = _time_ms(torch, cycling(pa.paged_attention_reference), 20)
+        # the yardstick: SDPA with a length mask over each layer's K/V
+        # gathered dense (the gather not timed); the idle slot attends its
+        # first position so its row stays finite
+        idx = pt.long()
+        dense = [tuple(t[i][idx].reshape(B, pps * ps, nkv, d).transpose(1, 2)
+                       .contiguous() for t in (kp, vp))
+                 for i in range(n_layers)]
+        qs = q[:, :, None, :]                              # [B, nh, 1, d]
+        keep = (torch.arange(pps * ps, device=dev)[None, :]
+                < sl.clamp_min(1).long()[:, None])[:, None, None, :]
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+
+        def lib(step=[0]):
+            i = step[0] % n_layers
+            step[0] += 1
+            return sdpa(qs, dense[i][0], dense[i][1], attn_mask=keep,
+                        enable_gqa=nkv != nh)
+        lib_ms = _time_ms(torch, lib, 200)
+        del dense
         tokens = sum(lens)
         nbytes = (2 * tokens * nkv * d * kp.element_size()       # K and V
                   + 2 * q.numel() * q.element_size()             # q and out
@@ -537,14 +594,15 @@ def phase_paged(torch, res):
         flops = 4 * nh * d * tokens
         bound_ms, by = _bound(flops, nbytes, "bfloat16")
         _log(f"paged_attention_decode bf16 bucket 8 ({tokens} live tokens): "
-             f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library none, "
-             f"bound {bound_ms:.5f} ms ({by}: {nbytes / 1e6:.3f} MB)")
+             f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa (dense K/V, "
+             f"length mask) {lib_ms:.4f} ms, bound {bound_ms:.5f} ms ({by}: "
+             f"{nbytes / 1e6:.3f} MB)")
         res["paged"] = dict(
             name="paged_attention_decode", route="cuda",
             source="paddle_tpu_torch/csrc/paged_attention_decode.cu",
             replaces="paddle_tpu/kernels/paged_attention.py:80",
             launches=None, max_abs_err=err, ms=ms, plain_ms=plain_ms,
-            bound_ms=bound_ms, bound_by=by, library_ms=None)
+            bound_ms=bound_ms, bound_by=by, library_ms=lib_ms)
         del kp, vp
 
 
@@ -806,6 +864,192 @@ def phase_int8(torch, res):
     res["int8_worst_err"] = worst
 
 
+def _moe_inputs(torch, gen, dt, S):
+    """x [S, 768] (unit-variance rows, as a LayerNorm leaves them) in
+    ``dt``, and an ERNIE-initialised gate (normal(0, 0.02)) in ``dt``, as
+    the engine passes it."""
+    dtype = getattr(torch, dt)
+    x = torch.randn(S, MOE_M, device="cuda", generator=gen).to(dtype)
+    gw = (torch.randn(MOE_M, MOE_E, device="cuda", generator=gen)
+          * 0.02).to(dtype)
+    gb = (torch.randn(MOE_E, device="cuda", generator=gen) * 0.02).to(dtype)
+    return x, gw, gb
+
+
+def _max_rel(got, want):
+    """The largest |got - want| over the largest |want|."""
+    top = want.float().abs().max().item()
+    return (got.float() - want.float()).abs().max().item() / max(top, 1e-30)
+
+
+def _check_dispatch(torch, md, x, gw, gb, C, K, kind):
+    """The dispatch kernel against its plain version. The experts the kernel
+    picked equal the plain version's except at router near ties; given its
+    picks, comb_idx and expert_in are exactly the slot rule's and the row
+    gather's; val (where the picks agree), me and ce within MOE_REL of the
+    largest |value|. Returns a reading, with ``ok``."""
+    E = MOE_E
+    out, idx = md._launch_dispatch(x, gw, gb, E, C, K, kind)
+    torch.cuda.synchronize()
+    ref = md.reference_moe_dispatch(x, gw, gb, num_expert=E, capacity=C,
+                                    top_k=K, gate_kind=kind)
+    logits = md.gate_logits(x, gw, gb)
+    _, pidx = md._top_k(logits, K)
+    near = md.near_ties(logits, K, MOE_NEAR_TIE)
+    flipped = (idx.long() != pidx).any(-1)
+    st, comb = md.dispatch_indices(idx, num_expert=E, capacity=C)
+    xp = torch.cat([x, x.new_zeros(1, MOE_M)])
+    exact = bool(torch.equal(out[1], comb)) and bool(
+        torch.equal(out[0].reshape(E * C, MOE_M), xp[st.long()]))
+    same = ~flipped
+    ce = torch.nn.functional.one_hot(idx[:, 0].long(), E).float().mean(0)
+    rel = dict(val=_max_rel(out[2][same], ref[2][same]),
+               me=_max_rel(out[3], ref[3]), ce=_max_rel(out[4], ce))
+    val_abs = (out[2][same] - ref[2][same]).abs().max().item()
+    off_tie = int((flipped & ~near).sum())
+    dropped = int((out[1] == E * C).sum())
+    ok = exact and off_tie == 0 and max(rel.values()) <= MOE_REL
+    return dict(near_ties=int(near.sum()), flipped=int(flipped.sum()),
+                val_max_abs_err=val_abs,
+                flipped_off_tie=off_tie, exact=exact, dropped=dropped,
+                exact_vs_plain=bool(torch.equal(out[1], ref[1])),
+                ok=ok, **{f"{k}_rel": v for k, v in rel.items()})
+
+
+def _check_combine(torch, md, dt, eo, val, comb):
+    """The combine kernel against the plain version with its rounding
+    points (f32: MOE_REL of max |ref|; bf16: within one bf16 spacing of
+    each element) and against the einsum reference (f32: MOE_REL; bf16:
+    MOE_COMBINE_EINSUM_TOL)."""
+    y = md.fused_moe_combine(eo, val, comb)
+    torch.cuda.synchronize()
+    ref = md.combine_kernel_reference(eo, val, comb)
+    ein = md.reference_moe_combine(eo, val, comb)
+    err_ref = _max_rel(y, ref)
+    _, share, rms, _ = _scaled_err(y, ein)
+    if dt == "float32":
+        ok = err_ref <= MOE_REL and share <= MOE_REL
+    else:
+        r = ref.float()
+        ulp = torch.exp2(torch.floor(torch.log2(r.abs().clamp_min(1e-30))) - 7)
+        spacings = ((y.float() - r).abs() / ulp).max().item()
+        ok = spacings <= 1 and share <= MOE_COMBINE_EINSUM_TOL[0] \
+            and rms <= MOE_COMBINE_EINSUM_TOL[1]
+    row = dict(max_rel_vs_kernel_form=err_ref, einsum_share=share,
+               einsum_rms=rms, ok=ok,
+               max_abs_err=(y.float() - ref.float()).abs().max().item())
+    if dt == "bfloat16":
+        row["bf16_spacings_vs_kernel_form"] = spacings
+    return row
+
+
+def phase_moe_dispatch(torch, res):
+    from paddle_tpu_torch.kernels import moe_dispatch as md
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    readings, failed = [], []
+    near_total = 0
+    for dt in ("bfloat16", "float32"):
+        for label, S, C, K, kind in MOE_CASES:
+            x, gw, gb = _moe_inputs(torch, gen, dt, S)
+            row = dict(case=label, dtype=dt, S=S, C=C, top_k=K, kind=kind)
+            row["dispatch"] = d = _check_dispatch(torch, md, x, gw, gb, C, K,
+                                                  kind)
+            near_total += d["near_ties"]
+            _, comb, val, _, _ = md.reference_moe_dispatch(
+                x, gw, gb, num_expert=MOE_E, capacity=C, top_k=K,
+                gate_kind=kind)
+            eo = torch.randn(MOE_E * C, MOE_M, device="cuda",
+                             generator=gen).to(getattr(torch, dt))
+            row["combine"] = c = _check_combine(torch, md, dt, eo, val, comb)
+            _log(f"moe {dt} {label} S={S} C={C} k={K} {kind}: dispatch "
+                 f"near ties {d['near_ties']}, picks differing {d['flipped']} "
+                 f"({d['flipped_off_tie']} off a near tie), comb_idx and "
+                 f"expert_in exact {d['exact']} (equal to the plain version's "
+                 f"{d['exact_vs_plain']}), dropped {d['dropped']}, val/me/ce "
+                 f"{d['val_rel']:.2e}/{d['me_rel']:.2e}/{d['ce_rel']:.2e} of "
+                 f"max (tol {MOE_REL:g}) {'ok' if d['ok'] else 'FAIL'}; "
+                 f"combine vs kernel form {c['max_rel_vs_kernel_form']:.2e}"
+                 + (f" ({c['bf16_spacings_vs_kernel_form']:.2f} bf16 spacings)"
+                    if dt == "bfloat16" else "")
+                 + f", vs einsum {c['einsum_share']:.2e} of max, rms "
+                 f"{c['einsum_rms']:.2e} {'ok' if c['ok'] else 'FAIL'}")
+            if not (d["ok"] and c["ok"]):
+                failed.append(f"{dt} {label}")
+            readings.append(row)
+    _log(f"moe router near ties (k-th and (k+1)-th logits within "
+         f"{MOE_NEAR_TIE:g}) over all cases: {near_total}")
+    res["moe_cases"] = readings
+    res["moe_near_ties"] = near_total
+    if failed:
+        raise AssertionError(f"MoE kernels disagree: {failed}")
+    # time both kernels at the serving shapes, bf16, the stream held
+    shapes = {}
+    for label, S in (("decode", 8), ("prefill", 512)):
+        C, K = S, 2
+        x, gw, gb = _moe_inputs(torch, gen, "bfloat16", S)
+        kw = dict(num_expert=MOE_E, capacity=C, top_k=K)
+        with torch.no_grad():
+            ei, comb, val, _, _ = md.fused_moe_dispatch(x, gw, gb, **kw)
+            eo = torch.randn(MOE_E * C, MOE_M, device="cuda",
+                             generator=gen).to(ei.dtype)
+            t = dict(
+                dispatch=_time_held_ms(torch, lambda: md.fused_moe_dispatch(
+                    x, gw, gb, **kw), 100),
+                dispatch_plain=_time_held_ms(
+                    torch, lambda: md.reference_moe_dispatch(x, gw, gb, **kw),
+                    20),
+                combine=_time_held_ms(torch, lambda: md.fused_moe_combine(
+                    eo, val, comb), 100),
+                combine_plain=_time_held_ms(
+                    torch, lambda: md.combine_kernel_reference(eo, val, comb),
+                    20),
+                combine_einsum=_time_held_ms(
+                    torch, lambda: md.reference_moe_combine(eo, val, comb),
+                    20))
+        item = x.element_size()
+        d_bytes = (S * MOE_M * item + MOE_M * MOE_E * item + MOE_E * item
+                   + MOE_E * C * MOE_M * item          # the whole buffer
+                   + S * K * 8 + 2 * MOE_E * 4)        # comb, val, me, ce
+        d_bound, d_by = _bound(2 * S * MOE_M * MOE_E, d_bytes, "bfloat16")
+        kept = int((comb < MOE_E * C).sum())
+        c_bytes = kept * MOE_M * item + S * MOE_M * item + S * K * 8
+        c_bound, c_by = _bound(2 * kept * MOE_M, c_bytes, "bfloat16")
+        shapes[label] = dict(S=S, C=C, **{f"{k}_ms": v for k, v in t.items()},
+                             dispatch_bound_ms=d_bound, dispatch_bound_by=d_by,
+                             dispatch_bytes=d_bytes, combine_bound_ms=c_bound,
+                             combine_bound_by=c_by, combine_bytes=c_bytes)
+        _log(f"moe bf16 {label} S={S} C={C} M={MOE_M} E={MOE_E} k={K}: "
+             f"dispatch kernel {t['dispatch']:.4f} ms, plain "
+             f"{t['dispatch_plain']:.4f} ms, bound {d_bound:.5f} ms ({d_by}: "
+             f"{d_bytes / 1e6:.3f} MB); combine kernel {t['combine']:.4f} ms,"
+             f" plain {t['combine_plain']:.4f} ms (einsum "
+             f"{t['combine_einsum']:.4f} ms), bound {c_bound:.5f} ms ({c_by}:"
+             f" {c_bytes / 1e6:.3f} MB); library none")
+    dec = shapes["decode"]
+    worst = lambda dt, part, key: max(                  # noqa: E731
+        r[part][key] for r in readings if r["dtype"] == dt)
+    res["moe_dispatch"] = dict(
+        name="moe_dispatch", route="cuda",
+        source="paddle_tpu_torch/csrc/moe_dispatch.cu",
+        replaces="paddle_tpu/kernels/moe_dispatch.py:199",
+        launches=None, max_abs_err=worst("bfloat16", "dispatch",
+                                         "val_max_abs_err"),
+        ms=dec["dispatch_ms"], plain_ms=dec["dispatch_plain_ms"],
+        bound_ms=dec["dispatch_bound_ms"], bound_by=dec["dispatch_bound_by"],
+        library_ms=None, timed="the decode shape S = C = 8, M = 768, E = 8",
+        shapes=shapes)
+    res["moe_combine"] = dict(
+        name="moe_combine", route="cuda",
+        source="paddle_tpu_torch/csrc/moe_dispatch.cu",
+        replaces="paddle_tpu/kernels/moe_dispatch.py:413",
+        launches=None, max_abs_err=worst("bfloat16", "combine",
+                                         "max_abs_err"),
+        ms=dec["combine_ms"], plain_ms=dec["combine_plain_ms"],
+        bound_ms=dec["combine_bound_ms"], bound_by=dec["combine_bound_by"],
+        library_ms=None, timed="the decode shape S = C = 8, M = 768, k = 2",
+        shapes=shapes)
+
+
 # ----------------------------------------------------------------- phase 3
 
 def _engine(model, **kw):
@@ -821,12 +1065,11 @@ def _prompts(cfg, np):
             for n in PROMPT_LENS]
 
 
-def _warm(eng, cfg, np):
+def _warm(eng, cfg, np, lens=(100, 300, 700, 1000, 200, 400, 600, 800)):
     """Touch every prefill bucket and every decode bucket once (cuBLAS
     shapes, lazily loaded kernels, the allocator) before anything is
     timed."""
     rng = np.random.default_rng(3)
-    lens = (100, 300, 700, 1000, 200, 400, 600, 800)
     assert {eng.prefill_bucket(n) for n in lens} == set(eng.prefill_buckets)
     rids = [f"warm{i}" for i in range(len(lens))]
     for rid, n in zip(rids, lens):
@@ -875,26 +1118,34 @@ def _e2e(sched, reqs, wall):
                 ttft_ms=ttft)
 
 
-def _serve_counted(torch, np, eng, cfg, label):
-    """One serving run of the eight ragged prompts, with the kernels'
-    launch counts set to 0 just before it and read just after, and held
-    exactly: the flash kernel once a layer per prefill, the paged decode
+def _gpt_launches(eng, steps, n):
+    """The GPT engine's launches for ``n`` prefills and ``steps`` decode
+    steps: the flash kernel once a layer per prefill, the paged decode
     kernel once a layer per decode step, and with int8 weights the int8
     kernel for the 4 block matmuls of every layer and the logits per
-    decode step and each prefill's logits. Returns (e2e, requests)."""
+    decode step and each prefill's logits."""
+    L = eng.cfg.num_layers
+    want = dict(flash=L * n, paged=L * steps)
+    if eng.quantize:
+        want["int8"] = (4 * L + 1) * steps + n
+    return want
+
+
+def _serve_counted(torch, np, eng, cfg, label, prompts=None,
+                   launches=_gpt_launches):
+    """One serving run of the eight ragged prompts (or ``prompts``), with
+    the kernels' launch counts set to 0 just before it and read just
+    after, and held exactly to ``launches(eng, decode steps, prompts)``
+    (kernels it does not name: 0). Returns (e2e, requests)."""
     from paddle_tpu_torch.serving import ContinuousBatchingScheduler
     sched = ContinuousBatchingScheduler(eng)
-    prompts = _prompts(cfg, np)
+    prompts = _prompts(cfg, np) if prompts is None else prompts
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     _zero_counts()
     reqs, wall, _ = _run_sched(torch, sched, prompts, MAX_NEW)
     counts = _counts()
-    L, n = cfg.num_layers, len(prompts)
-    want = dict(flash=L * n, paged=L * sched.steps)
-    if eng.quantize:
-        want["int8"] = (4 * L + 1) * sched.steps + n
-    _check_counts(label, counts, want)
+    _check_counts(label, counts, launches(eng, sched.steps, len(prompts)))
     if eng.pool.pages_in_use:
         raise AssertionError(f"{label}: leaked pages")
     e2e = _e2e(sched, reqs, wall)
@@ -1009,6 +1260,11 @@ def _kernel_group(name):
         return "ragged_prefill_attention"
     if "int8_mm_" in name:
         return "int8_matmul"
+    if any(s in name for s in ("moe_gate_kernel", "moe_scan_kernel",
+                               "moe_scatter_kernel")):
+        return "moe_dispatch"
+    if "moe_combine_kernel" in name:
+        return "moe_combine"
     if any(s in name.lower() for s in ("gemm", "gemv", "xmma", "cutlass",
                                        "nvjet")):
         return "matmul (cuBLAS)"
@@ -1017,16 +1273,16 @@ def _kernel_group(name):
     return "other (elementwise and reductions)"
 
 
-def _profile_engine(torch, np, eng, cfg, prefill=True):
-    """Where the time goes in the bf16 engine: the eight prefills (unless
-    ``prefill`` is false, when they run unprofiled), then 16 decode steps
-    at bucket 8, each window under the profiler. Prints
-    the device busy share (device time / host wall time) and the device
-    time by kernel group. Profiling slows the host, so the busy share
-    read here is a lower bound for an unprofiled run."""
+def _profile_engine(torch, np, eng, cfg, prefill=True, lens=PROMPT_LENS):
+    """Where the time goes in the bf16 engine: the eight prefills of
+    ``lens`` tokens (unless ``prefill`` is false, when they run
+    unprofiled), then 16 decode steps at bucket 8, each window under the
+    profiler. Prints the device busy share (device time / host wall time)
+    and the device time by kernel group. Profiling slows the host, so the
+    busy share read here is a lower bound for an unprofiled run."""
     rng = np.random.default_rng(2)
     prompts = [rng.integers(0, cfg.vocab_size, (s,)).astype(np.int32)
-               for s in PROMPT_LENS]
+               for s in lens]
     rids = [f"profile{i}" for i in range(len(prompts))]
     n_decode = 16
 
@@ -1078,16 +1334,18 @@ def _profile_engine(torch, np, eng, cfg, prefill=True):
     return out
 
 
-def _check_tokens(torch, np, model, reqs):
+def _check_tokens(torch, np, model, reqs, forward=None):
     """Every generated token of ``reqs`` against the argmax of ``model``
-    (dense, teacher-forced on the request's own output): equal, or a near
-    tie (top-2 gap < 1e-3, the token among the top two), counted. Returns
+    (dense, teacher-forced on the request's own output; ``forward(ids
+    [1, S])`` -> logits, ``model(ids)`` when None): equal, or a near tie
+    (top-2 gap < 1e-3, the token among the top two), counted. Returns
     (tokens checked, near ties)."""
+    forward = model if forward is None else forward
     checked = near_ties = 0
     with torch.no_grad():
         for r in reqs:
             ids = torch.from_numpy(r.output_ids.astype(np.int64)).cuda()
-            logits = model(ids[None, :-1])[0].float()
+            logits = forward(ids[None, :-1])[0].float()
             n = len(r.prompt)
             for i, tok in enumerate(r.tokens):
                 row = logits[n - 1 + i]
@@ -1150,19 +1408,24 @@ def _counts():
     """Every kernel wrapper's launch count, by kernel."""
     from paddle_tpu_torch.kernels import flash_attention as fa
     from paddle_tpu_torch.kernels import int8_matmul as im
+    from paddle_tpu_torch.kernels import moe_dispatch as md
     from paddle_tpu_torch.kernels import paged_attention as pa
     return dict(flash=fa.launches, flash_bwd_dq=fa.dq_launches,
                 flash_bwd_dkv=fa.dkv_launches, paged=pa.launches,
-                paged_prefill=pa.prefill_launches, int8=im.launches)
+                paged_prefill=pa.prefill_launches, int8=im.launches,
+                moe_dispatch=md.dispatch_launches,
+                moe_combine=md.combine_launches)
 
 
 def _zero_counts():
     from paddle_tpu_torch.kernels import flash_attention as fa
     from paddle_tpu_torch.kernels import int8_matmul as im
+    from paddle_tpu_torch.kernels import moe_dispatch as md
     from paddle_tpu_torch.kernels import paged_attention as pa
     fa.launches = fa.dq_launches = fa.dkv_launches = 0
     pa.launches = pa.prefill_launches = 0
     im.launches = 0
+    md.dispatch_launches = md.combine_launches = 0
 
 
 def _check_counts(what, got, want):
@@ -1351,6 +1614,70 @@ def phase_serving_int8(torch, np, res):
     res["serving_int8"] = dict(bf16=e2e, profile=prof,
                                f32=dict(tokens_checked=checked,
                                         near_ties=near))
+
+
+def _moe_launches(eng, steps, n):
+    """The MoE engine's launches for ``n`` prefills and ``steps`` decode
+    steps: the dispatch and combine kernels once per MoE layer per prefill
+    and per decode step, the paged decode kernel once a layer per decode
+    step."""
+    n_moe = sum(k == "moe" for k in eng.kinds)
+    return dict(moe_dispatch=n_moe * (n + steps),
+                moe_combine=n_moe * (n + steps),
+                paged=len(eng.kinds) * steps)
+
+
+def phase_serving_moe(torch, np, res):
+    from paddle_tpu_torch.models.ernie import (ErnieMoeForPretraining,
+                                               ErnieMoeModel,
+                                               ernie_moe_base_config)
+    from paddle_tpu_torch.serving import MoEServingEngine
+    cfg = ernie_moe_base_config(capacity_factor=100.0)
+    model = ErnieMoeForPretraining(ErnieMoeModel(cfg, seed=0,
+                                                 device="cuda")).eval()
+    n_params = sum(p.numel() for p in model.parameters())
+    _log(f"serving_moe config: layers={cfg.num_hidden_layers} hidden="
+         f"{cfg.hidden_size} heads={cfg.num_attention_heads} head_dim="
+         f"{cfg.head_dim} experts={cfg.num_experts} top_k={cfg.top_k} "
+         f"moe_every={cfg.moe_every} vocab={cfg.vocab_size} max_pos="
+         f"{cfg.max_position_embeddings}; {n_params} parameters")
+    rng = np.random.default_rng(11)
+    prompts = [rng.integers(0, cfg.vocab_size, (n,)).astype(np.int32)
+               for n in MOE_PROMPT_LENS]
+
+    def engine(m):
+        return MoEServingEngine(m, page_size=64, decode_buckets=(1, 2, 4, 8),
+                                device="cuda")
+    out = {}
+    eng = engine(copy.deepcopy(model).to(torch.bfloat16))
+    _warm(eng, cfg, np, lens=(50, 100, 200, 400, 60, 120, 240, 480))
+    _stamp("serving_moe bf16 warmed up")
+    e2e, _ = _serve_counted(torch, np, eng, cfg, "serving_moe bf16",
+                            prompts=prompts, launches=_moe_launches)
+    out["bf16"] = e2e
+    _log("serving_moe bf16: " + json.dumps(
+        {k: v for k, v in e2e.items() if k != "ttft_ms"}))
+    _log("serving_moe bf16, 16 decode steps at bucket 8, profiled:")
+    out["profile"] = _profile_engine(torch, np, eng, cfg, prefill=False,
+                                     lens=MOE_PROMPT_LENS)
+    del eng
+    _stamp("serving_moe bf16 done")
+    # f32: every token against the eager model's argmax, teacher-forced
+    # under the causal mask (one forward per request)
+    eng = engine(model)
+    _, reqs = _serve_counted(torch, np, eng, cfg, "serving_moe f32",
+                             prompts=prompts, launches=_moe_launches)
+    del eng
+
+    def causal_forward(ids):
+        S = ids.shape[1]
+        mask = torch.ones(S, S, dtype=torch.bool, device=ids.device).tril()
+        return model(ids, attention_mask=mask[None, None])
+    checked, near = _check_tokens(torch, np, model, reqs, causal_forward)
+    out["f32"] = dict(tokens_checked=checked, near_ties=near)
+    _log(f"serving_moe f32: {checked} generated tokens equal the eager "
+         f"model's argmax (near ties, gap < 1e-3: {near})")
+    res["serving_moe"] = out
 
 
 def _profile_run(torch, fn):
@@ -1594,9 +1921,11 @@ def main(argv=None) -> int:
               ("paged", lambda: phase_paged(torch, res)),
               ("paged_prefill", lambda: phase_paged_prefill(torch, res)),
               ("int8", lambda: phase_int8(torch, res)),
+              ("moe_dispatch", lambda: phase_moe_dispatch(torch, res)),
               ("serving", lambda: phase_serving(torch, np, res)),
               ("serving_prefix", lambda: phase_serving_prefix(torch, np, res)),
               ("serving_int8", lambda: phase_serving_int8(torch, np, res)),
+              ("serving_moe", lambda: phase_serving_moe(torch, np, res)),
               ("training", lambda: phase_training(torch, np, res))]
     for name, fn in phases:
         t0 = time.perf_counter()
@@ -1618,7 +1947,8 @@ def main(argv=None) -> int:
         return 1
     # launches: each kernel's count over its main path's counted run (the
     # first bf16 serving run; the five timed training steps; the bf16
-    # cache-on shared-prefix run; the bf16 int8 run), by path
+    # cache-on shared-prefix run; the bf16 int8 run; the bf16 MoE run), by
+    # path
     train = res["training_bf16"]["launches"]
     res["flash"]["launches"] = res["serving_bf16"]["launches"]["flash"]
     res["flash"]["launches_by_path"] = dict(
@@ -1641,10 +1971,15 @@ def main(argv=None) -> int:
         serving_prefix_cache_off=prefix_off["paged_prefill"])
     res["int8"]["launches"] = int8["int8"]
     res["int8"]["launches_by_path"] = dict(serving_int8=int8["int8"])
+    moe = res["serving_moe"]["bf16"]["launches"]
+    res["paged"]["launches_by_path"]["serving_moe"] = moe["paged"]
+    for key in ("moe_dispatch", "moe_combine"):
+        res[key]["launches"] = moe[key]
+        res[key]["launches_by_path"] = dict(serving_moe=moe[key])
     print(json.dumps({"kernels": [
         {k: v for k, v in res[key].items() if k != "shapes"} for key in (
             "flash", "flash_bwd_dq", "flash_bwd_dkv", "paged",
-            "paged_prefill", "int8")]}))
+            "paged_prefill", "int8", "moe_dispatch", "moe_combine")]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

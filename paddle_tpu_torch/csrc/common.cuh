@@ -1,11 +1,14 @@
 // Shared helpers of the port's CUDA kernels: dtype codes, conversions
-// between the storage type and the f32 the kernels compute in, and a
-// 16-byte vector load that widens to f32.
+// between the storage type and the f32 the kernels compute in, a 16-byte
+// vector load that widens to f32, and the head-dim instances of the
+// attention kernels.
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace ptt {
 
@@ -54,6 +57,59 @@ __device__ __forceinline__ void load16(const T* src, float* dst) {
   const T* e = reinterpret_cast<const T*>(&raw);
 #pragma unroll
   for (int i = 0; i < Vec<T>::N; ++i) dst[i] = to_float<T>(e[i]);
+}
+
+// The attention kernels are built for head dims D = 16, 32, 64 and 128 and
+// take any head dim 0 < d <= 128 (the TPU kernels' range): d runs in the
+// smallest instance D >= d. Each kernel has a FULL template flag. FULL
+// (d == D) is the code as written for D, rows read with 16-byte loads; not
+// FULL (d < D, the masked instances, built in the *_masked.cu sources) reads
+// rows element by element with the columns d..D-1 as 0, so they add nothing
+// to Q.K^T or P.V, and never stores them.
+inline int instance_dim(int d) {
+  return d < 1 ? 0 : d <= 16 ? 16 : d <= 32 ? 32 : d <= 64 ? 64 : d <= 128 ? 128 : 0;
+}
+
+// the VEC = Vec<T>::N elements at columns c.. of the row at src, as f32:
+// one 16-byte load at the instance's full width (src 16-byte aligned), else
+// element by element, 0 at columns >= d
+template <typename T, bool FULL>
+__device__ __forceinline__ void load_cols(const T* src, int c, int d, float* dst) {
+  if constexpr (FULL) {
+    load16(src + c, dst);
+  } else {
+#pragma unroll
+    for (int i = 0; i < Vec<T>::N; ++i)
+      dst[i] = c + i < d ? to_float<T>(src[c + i]) : 0.f;
+  }
+}
+
+template <typename T>
+struct Tag {
+  using type = T;
+};
+
+// fn(Tag<T>{}, std::integral_constant<int, D>{}) for the dtype code and the
+// instance D of head dim d; cudaErrorInvalidValue for any other dtype or d
+template <typename Fn>
+cudaError_t dispatch_dtype_dim(int dtype, int d, Fn&& fn) {
+  using I16 = std::integral_constant<int, 16>;
+  using I32 = std::integral_constant<int, 32>;
+  using I64 = std::integral_constant<int, 64>;
+  using I128 = std::integral_constant<int, 128>;
+  const int D = instance_dim(d);
+  if (dtype == kF32) {
+    if (D == 16) return fn(Tag<float>{}, I16{});
+    if (D == 32) return fn(Tag<float>{}, I32{});
+    if (D == 64) return fn(Tag<float>{}, I64{});
+    if (D == 128) return fn(Tag<float>{}, I128{});
+  } else if (dtype == kBF16) {
+    if (D == 16) return fn(Tag<__nv_bfloat16>{}, I16{});
+    if (D == 32) return fn(Tag<__nv_bfloat16>{}, I32{});
+    if (D == 64) return fn(Tag<__nv_bfloat16>{}, I64{});
+    if (D == 128) return fn(Tag<__nv_bfloat16>{}, I128{});
+  }
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace ptt

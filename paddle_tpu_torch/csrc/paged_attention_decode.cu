@@ -25,7 +25,9 @@
 // half of the 132 SMs idle. Splitting the page walk across blocks and
 // merging the partial softmax states (flash-decoding) is later work.
 // The page table is read inside the kernel (the TPU kernel's scalar
-// prefetch), and pages past seq_len are never visited.
+// prefetch), and pages past seq_len are never visited. Head dims: any
+// 0 < d <= 128, in the instance D of common.cuh (FULL at d = D; masked
+// columns past d otherwise), where the TPU wrapper pads the pool to 128.
 #include "common.cuh"
 
 namespace ptt {
@@ -42,14 +44,15 @@ size_t decode_smem_bytes(int g, int ps) {
                           2 * (size_t)g);
 }
 
-template <typename T, int D>
+template <typename T, int D, bool FULL>
 __global__ void __launch_bounds__(kNT)
 paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ kp,
                     const T* __restrict__ vp, const int* __restrict__ pt,
                     const int* __restrict__ sl, T* __restrict__ out, int nh,
-                    int nkv, int ps, int pps, int q_sb, int q_sh,
+                    int nkv, int hd, int ps, int pps, int q_sb, int q_sh,
                     float scale) {
   constexpr int DP = D + 1;
+  const int rw = FULL ? D : hd;  // the rows' width in memory
   constexpr int VEC = Vec<T>::N;
   const int h = blockIdx.x;
   const int b = blockIdx.y;
@@ -69,7 +72,9 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ kp,
 
   for (int idx = tid; idx < g * D; idx += kNT) {
     const int gi = idx / D, d = idx % D;
-    qs[idx] = to_float<T>(q[(long long)b * q_sb + (long long)(h * g + gi) * q_sh + d]);
+    qs[idx] = FULL || d < rw
+        ? to_float<T>(q[(long long)b * q_sb + (long long)(h * g + gi) * q_sh + d])
+        : 0.f;
     accs[idx] = 0.f;
   }
   for (int gi = tid; gi < g; gi += kNT) {
@@ -80,11 +85,11 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ kp,
   const int len = sl[b];
   // a length past the table's reach reads only the pages the table has
   const int npages = min((len + ps - 1) / ps, pps);
-  const long long tok_stride = (long long)nkv * D;  // between a page's rows
+  const long long tok_stride = (long long)nkv * rw;  // between a page's rows
   for (int j = 0; j < npages; ++j) {
     const long long page = pt[(long long)b * pps + j];
-    const T* kpage = kp + (page * ps * nkv + h) * D;
-    const T* vpage = vp + (page * ps * nkv + h) * D;
+    const T* kpage = kp + (page * ps * nkv + h) * rw;
+    const T* vpage = vp + (page * ps * nkv + h) * rw;
     const int base = j * ps;
     __syncthreads();  // qs/accs ready; the previous page's readers are done
     for (int idx = tid; idx < ps * (D / VEC); idx += kNT) {
@@ -92,8 +97,8 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ kp,
       const int c = (idx % (D / VEC)) * VEC;
       float tk[VEC], tv[VEC];
       if (base + t < len) {
-        load16(kpage + t * tok_stride + c, tk);
-        load16(vpage + t * tok_stride + c, tv);
+        load_cols<T, FULL>(kpage + t * tok_stride, c, rw, tk);
+        load_cols<T, FULL>(vpage + t * tok_stride, c, rw, tv);
       } else {  // zero V past seq_len: 0 * garbage could be NaN
 #pragma unroll
         for (int i = 0; i < VEC; ++i) tk[i] = tv[i] = 0.f;
@@ -149,18 +154,19 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ kp,
   __syncthreads();
   for (int idx = tid; idx < g * D; idx += kNT) {
     const int gi = idx / D, d = idx % D;
+    if (!FULL && d >= rw) continue;
     const float den = fmaxf(ls[gi], 1e-30f);
-    out[((long long)b * nh + h * g + gi) * D + d] = from_float<T>(accs[idx] / den);
+    out[((long long)b * nh + h * g + gi) * rw + d] = from_float<T>(accs[idx] / den);
   }
 }
 
-template <typename T, int D>
+template <typename T, int D, bool FULL>
 cudaError_t launch(const void* q, const void* kp, const void* vp,
                    const void* pt, const void* sl, void* out, int B, int nh,
-                   int nkv, int ps, int pps, int q_sb, int q_sh, float scale,
-                   cudaStream_t stream) {
+                   int nkv, int hd, int ps, int pps, int q_sb, int q_sh,
+                   float scale, cudaStream_t stream) {
   const size_t smem = decode_smem_bytes<D>(nh / nkv, ps);
-  auto kern = paged_decode_kernel<T, D>;
+  auto kern = paged_decode_kernel<T, D, FULL>;
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return e;
@@ -168,8 +174,8 @@ cudaError_t launch(const void* q, const void* kp, const void* vp,
   kern<<<grid, kNT, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(kp),
       static_cast<const T*>(vp), static_cast<const int*>(pt),
-      static_cast<const int*>(sl), static_cast<T*>(out), nh, nkv, ps, pps,
-      q_sb, q_sh, scale);
+      static_cast<const int*>(sl), static_cast<T*>(out), nh, nkv, hd, ps,
+      pps, q_sb, q_sh, scale);
   return cudaGetLastError();
 }
 
@@ -179,7 +185,9 @@ cudaError_t launch(const void* q, const void* kp, const void* vp,
 // q is [B, nh, D] with unit stride along D (batch and head strides in
 // elements); k_pages/v_pages are contiguous [num_pages, ps, nkv, D];
 // page_table [B, pps] and seq_lens [B] are contiguous int32; out is a
-// contiguous [B, nh, D]. Returns cudaGetLastError() after the launch.
+// contiguous [B, nh, D]. D is any head dim 0 < D <= 128; at 16, 32, 64 and
+// 128 the pages are read with 16-byte loads and must be 16-byte aligned.
+// Returns cudaGetLastError() after the launch.
 extern "C" int ptt_paged_attention_decode(
     const void* q, const void* kp, const void* vp, const void* pt,
     const void* sl, void* out, int dtype, int B, int nh, int nkv, int D,
@@ -188,14 +196,13 @@ extern "C" int ptt_paged_attention_decode(
   if (B < 1 || nkv < 1 || nh % nkv || ps < 1 || pps < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   auto s = static_cast<cudaStream_t>(stream);
-  cudaError_t e = cudaErrorInvalidValue;
-  if (dtype == kF32 && D == 64)
-    e = launch<float, 64>(q, kp, vp, pt, sl, out, B, nh, nkv, ps, pps, q_sb, q_sh, scale, s);
-  else if (dtype == kF32 && D == 128)
-    e = launch<float, 128>(q, kp, vp, pt, sl, out, B, nh, nkv, ps, pps, q_sb, q_sh, scale, s);
-  else if (dtype == kBF16 && D == 64)
-    e = launch<__nv_bfloat16, 64>(q, kp, vp, pt, sl, out, B, nh, nkv, ps, pps, q_sb, q_sh, scale, s);
-  else if (dtype == kBF16 && D == 128)
-    e = launch<__nv_bfloat16, 128>(q, kp, vp, pt, sl, out, B, nh, nkv, ps, pps, q_sb, q_sh, scale, s);
-  return static_cast<int>(e);
+  const bool full = D == instance_dim(D);
+  return static_cast<int>(dispatch_dtype_dim(dtype, D, [&](auto t, auto dim) {
+    using T = typename decltype(t)::type;
+    constexpr int kD = decltype(dim)::value;
+    return full ? launch<T, kD, true>(q, kp, vp, pt, sl, out, B, nh, nkv, D,
+                                      ps, pps, q_sb, q_sh, scale, s)
+                : launch<T, kD, false>(q, kp, vp, pt, sl, out, B, nh, nkv, D,
+                                       ps, pps, q_sb, q_sh, scale, s);
+  }));
 }

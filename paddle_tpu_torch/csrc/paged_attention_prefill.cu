@@ -27,7 +27,9 @@
 // 4 x (D / 8) block of the output in registers. A tile walks positions only
 // up to the one its last real row can see (the TPU kernel's early-out at
 // the page holding q_offset + C - 1, finer by row tile), so pages past it
-// are never read. Shared pages are only read.
+// are never read. Shared pages are only read. Head dims: any 0 < d <= 128,
+// in the instance D of common.cuh (FULL at d = D; masked columns past d
+// otherwise).
 #include "common.cuh"
 
 namespace ptt {
@@ -46,13 +48,15 @@ constexpr size_t prefill_smem_bytes() {
          (kBQ * (D + 1) + kBK * (D + 1) + kBK * D + kBQ * (kBK + 1));
 }
 
-template <typename T, int D>
+template <typename T, int D, bool FULL>
 __global__ void __launch_bounds__(kNT)
 paged_prefill_kernel(const T* __restrict__ q, const T* __restrict__ kp,
                      const T* __restrict__ vp, const int* __restrict__ pt,
-                     T* __restrict__ o, int nh, int C, int ps, int pps,
-                     int q_sb, int q_ss, int q_sh, int q_offset, float scale) {
+                     T* __restrict__ o, int nh, int hd, int C, int ps,
+                     int pps, int q_sb, int q_ss, int q_sh, int q_offset,
+                     float scale) {
   constexpr int DP = D + 1;
+  const int rw = FULL ? D : hd;  // the rows' width in memory
   constexpr int PP = kBK + 1;
   constexpr int DPT = D / kTC;  // output columns per thread
   constexpr int VEC = Vec<T>::N;
@@ -76,7 +80,7 @@ paged_prefill_kernel(const T* __restrict__ q, const T* __restrict__ kp,
     const int c = (idx % (D / VEC)) * VEC;
     float t[VEC];
     if (q0 + r < C) {
-      load16(qb + (long long)(q0 + r) * q_ss + c, t);
+      load_cols<T, FULL>(qb + (long long)(q0 + r) * q_ss, c, rw, t);
     } else {
 #pragma unroll
       for (int i = 0; i < VEC; ++i) t[i] = 0.f;
@@ -98,7 +102,7 @@ paged_prefill_kernel(const T* __restrict__ q, const T* __restrict__ kp,
   // table's reach
   const int kv_end = min(pps * ps, q_offset + min(q0 + kBQ, C));
   const int ntiles = (kv_end + kBK - 1) / kBK;
-  const long long row_stride = (long long)nh * D;  // between a page's rows
+  const long long row_stride = (long long)nh * rw;  // between a page's rows
 
   for (int j = 0; j < ntiles; ++j) {
     const int k0 = j * kBK;
@@ -111,9 +115,9 @@ paged_prefill_kernel(const T* __restrict__ q, const T* __restrict__ kp,
       if (pos < kv_end) {
         const long long page = table[pos / ps];
         const long long off = (page * ps + pos % ps) * row_stride +
-                              (long long)h * D + c;
-        load16(kp + off, tk);
-        load16(vp + off, tv);
+                              (long long)h * rw;
+        load_cols<T, FULL>(kp + off, c, rw, tk);
+        load_cols<T, FULL>(vp + off, c, rw, tv);
       } else {  // zero V past the last visible position: 0 * garbage
 #pragma unroll
         for (int i = 0; i < VEC; ++i) tk[i] = tv[i] = 0.f;
@@ -198,21 +202,22 @@ paged_prefill_kernel(const T* __restrict__ q, const T* __restrict__ kp,
   for (int i = 0; i < kRPT; ++i) {
     const int r = q0 + tr + i * (kNT / kTC);
     if (r >= C) continue;
-    T* orow = o + (((long long)b * C + r) * nh + h) * D;
+    T* orow = o + (((long long)b * C + r) * nh + h) * rw;
     const float den = fmaxf(l[i], 1e-30f);
 #pragma unroll
-    for (int dd = 0; dd < DPT; ++dd)
-      orow[tc + dd * kTC] = from_float<T>(acc[i][dd] / den);
+    for (int j = 0; j < DPT; ++j)
+      if (FULL || tc + j * kTC < rw)
+        orow[tc + j * kTC] = from_float<T>(acc[i][j] / den);
   }
 }
 
-template <typename T, int D>
+template <typename T, int D, bool FULL>
 cudaError_t launch(const void* q, const void* kp, const void* vp,
-                   const void* pt, void* o, int B, int C, int nh, int ps,
-                   int pps, int q_sb, int q_ss, int q_sh, int q_offset,
-                   float scale, cudaStream_t stream) {
+                   const void* pt, void* o, int B, int C, int nh, int hd,
+                   int ps, int pps, int q_sb, int q_ss, int q_sh,
+                   int q_offset, float scale, cudaStream_t stream) {
   constexpr size_t smem = prefill_smem_bytes<D>();
-  auto kern = paged_prefill_kernel<T, D>;
+  auto kern = paged_prefill_kernel<T, D, FULL>;
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return e;
@@ -220,7 +225,8 @@ cudaError_t launch(const void* q, const void* kp, const void* vp,
   kern<<<grid, kNT, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(kp),
       static_cast<const T*>(vp), static_cast<const int*>(pt),
-      static_cast<T*>(o), nh, C, ps, pps, q_sb, q_ss, q_sh, q_offset, scale);
+      static_cast<T*>(o), nh, hd, C, ps, pps, q_sb, q_ss, q_sh, q_offset,
+      scale);
   return cudaGetLastError();
 }
 
@@ -230,7 +236,9 @@ cudaError_t launch(const void* q, const void* kp, const void* vp,
 // q is [B, C, nh, D] with unit stride along D (batch, row and head strides
 // in elements); k_pages/v_pages are contiguous [num_pages, ps, nh, D];
 // page_table is a contiguous int32 [B, pps]; out is a contiguous
-// [B, C, nh, D]. Returns cudaGetLastError() after the launch.
+// [B, C, nh, D]. D is any head dim 0 < D <= 128; at 16, 32, 64 and 128,
+// q's rows and the pages are read with 16-byte loads and must be 16-byte
+// aligned. Returns cudaGetLastError() after the launch.
 extern "C" int ptt_paged_attention_prefill(
     const void* q, const void* kp, const void* vp, const void* pt, void* out,
     int dtype, int B, int C, int nh, int D, int ps, int pps, int q_sb,
@@ -240,14 +248,15 @@ extern "C" int ptt_paged_attention_prefill(
       (long long)B * nh > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   auto s = static_cast<cudaStream_t>(stream);
-  cudaError_t e = cudaErrorInvalidValue;
-  if (dtype == kF32 && D == 64)
-    e = launch<float, 64>(q, kp, vp, pt, out, B, C, nh, ps, pps, q_sb, q_ss, q_sh, q_offset, scale, s);
-  else if (dtype == kF32 && D == 128)
-    e = launch<float, 128>(q, kp, vp, pt, out, B, C, nh, ps, pps, q_sb, q_ss, q_sh, q_offset, scale, s);
-  else if (dtype == kBF16 && D == 64)
-    e = launch<__nv_bfloat16, 64>(q, kp, vp, pt, out, B, C, nh, ps, pps, q_sb, q_ss, q_sh, q_offset, scale, s);
-  else if (dtype == kBF16 && D == 128)
-    e = launch<__nv_bfloat16, 128>(q, kp, vp, pt, out, B, C, nh, ps, pps, q_sb, q_ss, q_sh, q_offset, scale, s);
-  return static_cast<int>(e);
+  const bool full = D == instance_dim(D);
+  return static_cast<int>(dispatch_dtype_dim(dtype, D, [&](auto t, auto dim) {
+    using T = typename decltype(t)::type;
+    constexpr int kD = decltype(dim)::value;
+    return full ? launch<T, kD, true>(q, kp, vp, pt, out, B, C, nh, D, ps,
+                                      pps, q_sb, q_ss, q_sh, q_offset, scale,
+                                      s)
+                : launch<T, kD, false>(q, kp, vp, pt, out, B, C, nh, D, ps,
+                                       pps, q_sb, q_ss, q_sh, q_offset,
+                                       scale, s);
+  }));
 }

@@ -21,7 +21,8 @@ import tempfile
 import threading
 from pathlib import Path
 
-__all__ = ["load_library", "build", "library_path", "build_log", "check"]
+__all__ = ["load_library", "build", "library_path", "build_log", "check",
+           "instance_head_dim", "HEAD_DIM_INSTANCES", "MAX_HEAD_DIM"]
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 _BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "paddle_tpu_torch"
@@ -34,7 +35,9 @@ _lib = None
 build_log: dict = {"ptxas": ""}   # compiler output of the last build
 
 # C signatures: every pointer and the stream are c_void_p, every int c_int
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# (a long long c_longlong)
+_P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, \
+    ctypes.c_longlong
 _SIGNATURES = {
     "ptt_flash_attention_fwd": [_P, _P, _P, _P, _P,          # q k v o lse
                                 _I, _I, _I, _I, _I, _I, _I,  # dtype B Nq Nkv Sq Sk D
@@ -64,7 +67,28 @@ _SIGNATURES = {
     "ptt_int8_matmul": [_P, _P, _P, _P, _P, _P,              # x w scale out ws counters
                         _I, _I, _I, _I, _I, _I, _I, _I,      # dtype layout M N K x_stride ksplit vec
                         _P],                                 # stream
+    "ptt_moe_dispatch": [_P, _P, _P, _P, _P, _P, _P, _P,     # x gw gb out comb val me ce
+                         _P, _L,                             # work, its words
+                         _I, _I, _I, _I, _I, _I, _I, _I,     # dtype wdtype S M x_rs E K C
+                         _I, _I, _P],                        # kind vec stream
+    "ptt_moe_combine": [_P, _P, _P, _P,                      # eo val comb y
+                        _I, _I, _I, _I, _I, _I,              # dtype S M K EC vec
+                        _P],                                 # stream
 }
+
+
+# the attention kernels are built for these head dims (csrc/common.cuh); any
+# other 0 < d <= 128 runs in the next one up, its columns past d masked
+HEAD_DIM_INSTANCES = (16, 32, 64, 128)
+MAX_HEAD_DIM = HEAD_DIM_INSTANCES[-1]
+
+
+def instance_head_dim(d: int) -> int:
+    """The kernel instance that runs head dim ``d``; raises ``ValueError``
+    outside ``0 < d <= 128``, the range the TPU kernels take."""
+    if not 0 < d <= MAX_HEAD_DIM:
+        raise ValueError(f"head dim {d} outside 1..{MAX_HEAD_DIM}")
+    return next(D for D in HEAD_DIM_INSTANCES if d <= D)
 
 
 def _sources():

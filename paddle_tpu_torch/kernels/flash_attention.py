@@ -13,8 +13,9 @@ Layout contract, as in the JAX package: ``flash_attention_bshd`` takes
 ``flash_attention`` takes head-major ``[BN, S, D]`` (k/v ``[BN // g, Sk,
 D]``). The kernels read strided views (unit stride along D only), so the
 q/k/v slices of a fused QKV projection go in without a copy, and ragged
-lengths are masked inside the kernels: the TPU wrapper's pad-to-128 copies
-are not ported.
+lengths and head dims below 128 are masked inside the kernels: the TPU
+wrapper's pad-to-128 copies are not ported. Any head dim ``0 < d <= 128``
+runs (``_build.instance_head_dim``).
 
 Dispatch: a CPU tensor takes the plain version
 (:func:`flash_attention_reference`, :func:`flash_attention_bwd_reference`);
@@ -31,10 +32,9 @@ from . import _build
 
 __all__ = ["flash_attention", "flash_attention_bshd", "flash_attention_fwd",
            "flash_attention_bwd", "flash_attention_reference",
-           "flash_attention_bwd_reference", "supported", "KERNEL_HEAD_DIMS"]
+           "flash_attention_bwd_reference", "supported"]
 
 MIN_SEQ = 64                 # the JAX gate's MIN_BLOCK // 2 profit threshold
-KERNEL_HEAD_DIMS = (64, 128)
 _NEG_INF = -1e30
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -47,14 +47,13 @@ dkv_launches = 0
 
 def supported(q_shape, k_shape=None, v_shape=None, causal=False,
               q_offset=None) -> bool:
-    """Does the kernel take these ``[B, S, N, D]`` shapes? Same rules as
-    the JAX gate (self/cross attention, GQA, causal with a query offset),
-    with the kernel's head dims (64 or 128) in place of the TPU's
-    ``d <= 128`` lane padding."""
+    """Does the kernel take these ``[B, S, N, D]`` shapes? The JAX gate's
+    rules: self/cross attention, GQA, causal with a query offset, S >= 64
+    and any head dim ``0 < d <= 128``."""
     if len(q_shape) != 4:
         return False
     b, sq, n, d = q_shape
-    if sq < MIN_SEQ or d not in KERNEL_HEAD_DIMS:
+    if sq < MIN_SEQ or not 0 < d <= _build.MAX_HEAD_DIM:
         return False
     if q_offset is not None:
         sk_eff = k_shape[1] if k_shape is not None and len(k_shape) == 4 \
@@ -180,14 +179,14 @@ def _check_cuda(ts):
         if t.dtype not in _DTYPE_CODES or t.dtype != ts[0].dtype:
             raise TypeError(f"flash attention kernel takes float32 or "
                             f"bfloat16 operands of one dtype, got {t.dtype}")
-        if t.shape[-1] not in KERNEL_HEAD_DIMS:
-            raise ValueError(f"head dim {t.shape[-1]} not in "
-                             f"{KERNEL_HEAD_DIMS}")
+        d = t.shape[-1]
         if t.stride(-1) != 1:
             raise ValueError("flash attention kernel needs unit stride "
                              "along the head dim")
+        # at an instance's own width the rows are read with 16-byte loads
         vec = 16 // t.element_size()
-        if t.data_ptr() % 16 or any(st % vec for st in t.stride()[:3]):
+        if d == _build.instance_head_dim(d) and (
+                t.data_ptr() % 16 or any(st % vec for st in t.stride()[:3])):
             raise ValueError("flash attention kernel needs 16-byte aligned "
                              "rows (strides a multiple of 16 bytes)")
         if max(t.stride()[:3]) >= 2 ** 31 or t.numel() >= 2 ** 40:

@@ -24,7 +24,9 @@ Layout contract, as in the JAX package:
   decoded (its K/V already written); 0 marks an idle slot whose output row
   is finite and discarded.
 
-The TPU wrapper's pool-wide pad of d to 128 lanes is not ported.
+The TPU wrapper's pool-wide pad of d to 128 lanes is not ported: the
+kernels take any head dim ``0 < d <= 128`` and mask the columns past d
+inside (``_build.instance_head_dim``).
 
 Dispatch: CPU tensors take the plain version; CUDA tensors launch the
 kernel or raise. ``launches`` counts decode kernel launches,
@@ -40,9 +42,8 @@ from . import _build
 
 __all__ = ["paged_attention_decode", "paged_attention_reference",
            "ragged_prefill_attention", "paged_prefill_attention",
-           "ragged_prefill_reference", "KERNEL_HEAD_DIMS"]
+           "ragged_prefill_reference"]
 
-KERNEL_HEAD_DIMS = (64, 128)
 _NEG_INF = -1e30
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_SMEM = 232448           # bytes of shared memory a block may use (H100)
@@ -98,8 +99,7 @@ def _launch(q, k_pages, v_pages, page_table, seq_lens, scale):
         raise TypeError(f"paged decode kernel takes float32 or bfloat16 "
                         f"q and pages of one dtype, got {q.dtype}, "
                         f"{k_pages.dtype}, {v_pages.dtype}")
-    if d not in KERNEL_HEAD_DIMS:
-        raise ValueError(f"head dim {d} not in {KERNEL_HEAD_DIMS}")
+    kd = _build.instance_head_dim(d)
     if k_pages.shape != v_pages.shape or k_pages.shape[3] != d:
         raise ValueError(f"pages {tuple(k_pages.shape)} / "
                          f"{tuple(v_pages.shape)} do not match q "
@@ -114,14 +114,14 @@ def _launch(q, k_pages, v_pages, page_table, seq_lens, scale):
             or tuple(seq_lens.shape) != (B,):
         raise ValueError(f"page_table {tuple(page_table.shape)} / seq_lens "
                          f"{tuple(seq_lens.shape)} do not match batch {B}")
-    vec = 16 // q.element_size()
-    if q.stride(-1) != 1 or any(t.data_ptr() % 16
-                                for t in (k_pages, v_pages)):
+    # at an instance's own width the pages are read with 16-byte loads
+    if q.stride(-1) != 1 or (d == kd and any(t.data_ptr() % 16
+                                             for t in (k_pages, v_pages))):
         raise ValueError("paged decode kernel needs unit stride along d "
                          "and 16-byte aligned pages")
-    if k_pages.numel() >= 2 ** 40 or d % vec:
-        raise ValueError("pool too large or head dim not a 16-byte multiple")
-    smem = _smem_bytes(nh // nkv, d, ps)
+    if k_pages.numel() >= 2 ** 40:
+        raise ValueError("pool too large for the kernel's indexing")
+    smem = _smem_bytes(nh // nkv, kd, ps)
     if smem > _MAX_SMEM:
         raise ValueError(f"page_size {ps} x head dim {d} needs {smem} bytes "
                          f"of shared memory (> {_MAX_SMEM})")
@@ -246,8 +246,7 @@ def _launch_prefill(q, k_pages, v_pages, page_table, q_offset, scale):
         raise TypeError(f"chunk prefill kernel takes float32 or bfloat16 "
                         f"q and pages of one dtype, got {q.dtype}, "
                         f"{k_pages.dtype}, {v_pages.dtype}")
-    if d not in KERNEL_HEAD_DIMS:
-        raise ValueError(f"head dim {d} not in {KERNEL_HEAD_DIMS}")
+    kd = _build.instance_head_dim(d)
     if k_pages.shape != v_pages.shape or k_pages.shape[3] != d:
         raise ValueError(f"pages {tuple(k_pages.shape)} / "
                          f"{tuple(v_pages.shape)} do not match q "
@@ -259,9 +258,12 @@ def _launch_prefill(q, k_pages, v_pages, page_table, q_offset, scale):
         raise TypeError(f"page_table must be a contiguous int32 [{B}, "
                         f"pages_per_seq], got {page_table.dtype} "
                         f"{tuple(page_table.shape)}")
+    # at an instance's own width q's rows and the pages are read with
+    # 16-byte loads
     vec = 16 // q.element_size()
-    if q.stride(-1) != 1 or any(s % vec for s in q.stride()[:3]) \
-            or any(t.data_ptr() % 16 for t in (q, k_pages, v_pages)):
+    if q.stride(-1) != 1 or d == kd and (
+            any(s % vec for s in q.stride()[:3])
+            or any(t.data_ptr() % 16 for t in (q, k_pages, v_pages))):
         raise ValueError("chunk prefill kernel needs q with unit stride "
                          "along d, 16-byte aligned rows and pages")
     if k_pages.numel() >= 2 ** 40 or max(q.stride()[:3]) * max(B, C, nh) \

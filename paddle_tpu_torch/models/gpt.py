@@ -27,7 +27,8 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 
 from ..device import resolve_device
 from ..framework.random import make_generator
-from ..kernels.flash_attention import KERNEL_HEAD_DIMS, flash_attention_bshd
+from ..kernels._build import MAX_HEAD_DIM
+from ..kernels.flash_attention import flash_attention_bshd
 
 __all__ = [
     "GPTConfig", "GPTDecoderLayer", "GPTEmbeddings", "GPTModel",
@@ -157,16 +158,16 @@ def gpt_block(p, x, eps, use_flash=False, return_kv=False):
 
 def flash_attention_gate(S, head_dim, use_flash=None, device=None):
     """ONE flash-attention gate for the GPT paths. ``use_flash=None``
-    approves the kernel on CUDA for every S >= 64 with a head dim the
-    kernel takes, and keeps the plain path on the CPU (the JAX gate's TPU
-    threshold of S >= 512 was measured on a v5e and does not carry over).
-    ``use_flash=True`` forces it wherever the shape allows (on the CPU the
-    flash wrapper then runs its plain version)."""
+    approves the kernel on CUDA for every S >= 64 and keeps the plain path
+    on the CPU (the JAX gate's TPU threshold of S >= 512 was measured on a
+    v5e and does not carry over). ``use_flash=True`` forces it wherever
+    the shape allows (on the CPU the flash wrapper then runs its plain
+    version). On both devices the head dim must be ``0 < d <= 128``, the
+    JAX gate's rule."""
     on_cuda = device is not None and torch.device(device).type == "cuda"
     if use_flash is None:
         use_flash = on_cuda
-    dims_ok = head_dim in KERNEL_HEAD_DIMS if on_cuda else head_dim <= 128
-    return bool(use_flash) and S >= 64 and dims_ok
+    return bool(use_flash) and S >= 64 and 0 < head_dim <= MAX_HEAD_DIM
 
 
 # ---------------------------------------------------------------------------

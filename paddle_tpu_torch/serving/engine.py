@@ -79,12 +79,14 @@ def _kn(w, k):
 
 
 def _mm(x, w):
-    """``x [..., K]`` times a ``[K, N]`` weight leaf. An int8 leaf runs the
-    dequant-matmul kernel (f32 sums, the f32 scale on the sum, one
-    rounding to ``x``'s dtype), where the JAX engine's auto-fusion puts
-    ``int8_matmul``."""
+    """``x [..., K]`` times a ``[K, N]`` weight leaf. A float leaf of
+    another dtype than ``x`` promotes both, as ``jnp.einsum`` does (a
+    compute dtype below the weights'). An int8 leaf runs the dequant-matmul
+    kernel (f32 sums, the f32 scale on the sum, one rounding to ``x``'s
+    dtype), where the JAX engine's auto-fusion puts ``int8_matmul``."""
     if not is_quantized(w):
-        return x @ w
+        dt = torch.promote_types(x.dtype, w.dtype)
+        return x.to(dt) @ w.to(dt)
     y = int8_matmul(x.reshape(-1, x.shape[-1]), w["q"], w["s"])
     return y.reshape(*x.shape[:-1], y.shape[-1])
 
@@ -93,7 +95,7 @@ def _logits(h, wte):
     """Logits ``[B, V]`` of ``h [B, 1, H]`` against the embedding table
     ``[V, H]``, read in its stored layout."""
     if not is_quantized(wte):
-        return (h @ wte.t())[:, 0]
+        return _mm(h, wte.t())[:, 0]
     return int8_matmul(h[:, 0], wte["q"], wte["s"], layout="nk")
 
 
@@ -167,7 +169,7 @@ def decode_step_fn(params, k_pages, v_pages, tokens, positions, page_table,
     pos = positions.long().clamp_min(0)
     page_table = page_table.to(torch.int32)
     seq_lens = seq_lens.to(torch.int32)
-    x = (_emb(wte, tokens.long(), dt) + _emb(wpe, pos, dt))[:, None, :]
+    x = (_emb(wte, tokens.long(), dt) + _emb(wpe, pos, dt)).to(dt)[:, None, :]
     # destination page row of the token being decoded. Idle slots (pos 0,
     # an all-sink table) all write row 0 of the sink page, so the index
     # repeats and which write lands is unspecified: harmless only because
@@ -589,7 +591,10 @@ class ServingEngine:
         self.pool.free(seq_id)
 
 
-def _to_device(params, device):
-    return {k: (_to_device(v, device) if isinstance(v, dict)
-                else v.to(device))
-            for k, v in params.items()}
+def _to_device(tree, device):
+    """A tree of dicts and tuples of tensors, moved to ``device``."""
+    if isinstance(tree, dict):
+        return {k: _to_device(v, device) for k, v in tree.items()}
+    if isinstance(tree, tuple):
+        return tuple(_to_device(v, device) for v in tree)
+    return tree.to(device)

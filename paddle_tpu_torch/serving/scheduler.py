@@ -215,10 +215,12 @@ class ContinuousBatchingScheduler:
 
     def _page_room(self, need: int) -> bool:
         """Do the free pages, less the reservations, cover ``need``? Short
-        of that, the engine reclaims prefix-cache pages first (LRU): cached
-        pages are free capacity until a request needs them."""
+        of that, an engine with a prefix cache reclaims cached pages first
+        (LRU): cached pages are free capacity until a request needs them.
+        An engine without ``reclaim_cache_pages`` (the MoE engine) has
+        none to give, as in the JAX scheduler."""
         avail = self.engine.pool.free_pages - self._reserved_pages
-        if avail < need:
+        if avail < need and hasattr(self.engine, "reclaim_cache_pages"):
             avail += self.engine.reclaim_cache_pages(need - avail)
         return avail >= need
 

@@ -166,7 +166,11 @@ def test_flash_gate():
     assert tgpt.flash_attention_gate(64, 128, None, "cuda")
     assert tgpt.flash_attention_gate(1024, 64, None, "cuda")
     assert not tgpt.flash_attention_gate(32, 128, None, "cuda")
-    assert not tgpt.flash_attention_gate(256, 96, None, "cuda")
+    # any head dim 0 < d <= 128 on both devices, as the JAX gate
+    assert tgpt.flash_attention_gate(256, 96, None, "cuda")
+    assert tgpt.flash_attention_gate(256, 16, None, "cuda")
+    assert not tgpt.flash_attention_gate(256, 160, None, "cuda")
+    assert not tgpt.flash_attention_gate(256, 160, True, "cpu")
     assert not tgpt.flash_attention_gate(1024, 128, None, "cpu")
     assert tgpt.flash_attention_gate(64, 16, True, "cpu")
     assert not tgpt.flash_attention_gate(512, 128, False, "cuda")

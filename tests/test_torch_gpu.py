@@ -12,9 +12,12 @@ import torch
 
 from paddle_tpu_torch.kernels import flash_attention as tfa
 from paddle_tpu_torch.kernels import int8_matmul as tim
+from paddle_tpu_torch.kernels import moe_dispatch as tmd
 from paddle_tpu_torch.kernels import paged_attention as tpa
+from paddle_tpu_torch.models import ernie as ternie
 from paddle_tpu_torch.models import gpt as tgpt
-from paddle_tpu_torch.serving import ContinuousBatchingScheduler, ServingEngine
+from paddle_tpu_torch.serving import (ContinuousBatchingScheduler,
+                                      MoEServingEngine, ServingEngine)
 
 # bf16 is compared after widening both sides to f32
 TOL = {"float32": 1e-4, "bfloat16": 2e-2}
@@ -148,7 +151,7 @@ def test_paged_kernel_matches_plain(dtype, nkv):
 @pytest.mark.gpu
 def test_kernels_refuse_what_they_do_not_take():
     dev = _cuda()
-    q = torch.randn(1, 64, 2, 96, device=dev)        # head dim 96
+    q = torch.randn(1, 64, 2, 160, device=dev)       # head dim past 128
     with pytest.raises(ValueError, match="head dim"):
         tfa.flash_attention_bshd(q, q, q, causal=True)
     q = torch.randn(1, 64, 2, 64, device=dev, dtype=torch.float16)
@@ -160,7 +163,7 @@ def test_kernels_refuse_what_they_do_not_take():
             torch.zeros(1, 1, 64, device=dev), kp, kp,
             torch.ones(1, 2, dtype=torch.int64, device=dev),
             torch.ones(1, dtype=torch.int32, device=dev))
-    q = torch.randn(1, 64, 2, 96, device=dev)         # backward, head dim 96
+    q = torch.randn(1, 64, 2, 160, device=dev)        # backward, head dim 160
     lse = torch.zeros(1, 2, 64, device=dev)
     with pytest.raises(ValueError, match="head dim"):
         tfa.flash_attention_bwd(q, q, q, q, lse, q, causal=True)
@@ -360,3 +363,236 @@ def test_engine_modes_on_cuda_match_cpu(mode):
             assert [r.cached_prefix_len for r in reqs][:3] == [0, 40, 33]
     for a, b in zip(*outs):
         np.testing.assert_array_equal(a, b)
+
+
+# ------------------------------------------------- head dims below 128
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("d", [16, 32, 48, 64, 128])
+def test_paged_kernels_at_every_head_dim(dtype, d):
+    """The paged decode and chunk-prefill kernels at head dims 16, 32 and
+    48 (run in the 64 instance, its columns past 48 masked), 64 and 128,
+    against their plain versions."""
+    dev = _cuda()
+    dt = getattr(torch, dtype)
+    B, nh, ps, pps = 4, 4, 16, 6
+    npg = B * pps + 1
+    q = torch.from_numpy(_rand((B, nh, d), 21)).to(dev, dt)
+    kp = torch.from_numpy(_rand((npg, ps, nh, d), 22)).to(dev, dt)
+    vp = torch.from_numpy(_rand((npg, ps, nh, d), 23)).to(dev, dt)
+    perm = np.random.default_rng(d).permutation(np.arange(1, npg))
+    pt = torch.from_numpy(perm.reshape(B, pps).astype(np.int32)).to(dev)
+    sl = torch.tensor([96, 1, 0, 37], dtype=torch.int32, device=dev)
+    n0, p0 = tpa.launches, tpa.prefill_launches
+    out = tpa.paged_attention_decode(q, kp, vp, pt, sl)
+    ref = tpa.paged_attention_reference(q, kp, vp, pt, sl)
+    live = torch.tensor([True, True, False, True], device=dev)
+    torch.testing.assert_close(out.float()[live], ref.float()[live],
+                               rtol=TOL[dtype], atol=TOL[dtype])
+    qc = torch.from_numpy(_rand((B, 40, nh, d), 24)).to(dev, dt)
+    out = tpa.ragged_prefill_attention(qc, kp, vp, pt, 29)
+    ref = tpa.paged_prefill_attention(qc, kp, vp, pt, 29)
+    torch.testing.assert_close(out.float(), ref.float(), rtol=TOL[dtype],
+                               atol=TOL[dtype])
+    torch.cuda.synchronize()
+    assert (tpa.launches, tpa.prefill_launches) == (n0 + 1, p0 + 1)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("d", [16, 32, 40])
+def test_flash_kernels_at_small_head_dims(dtype, d):
+    """The flash forward and both backward kernels at d = 16, 32 and 40
+    (the 64 instance, masked), causal with GQA, against the plain
+    versions."""
+    dev = _cuda()
+    dt = getattr(torch, dtype)
+    B, S, N, Nkv = 2, 150, 4, 2
+    q, k, v, do = (torch.from_numpy(_rand(shape, seed)).to(dev, dt)
+                   for shape, seed in (((B, S, N, d), 31), ((B, S, Nkv, d), 32),
+                                       ((B, S, Nkv, d), 33), ((B, S, N, d), 34)))
+    o, lse = tfa.flash_attention_fwd(q, k, v, causal=True)
+    o_ref, lse_ref = tfa.flash_attention_reference(q, k, v, causal=True)
+    torch.testing.assert_close(o.float(), o_ref.float(), rtol=TOL[dtype],
+                               atol=TOL[dtype])
+    torch.testing.assert_close(lse, lse_ref, rtol=1e-4, atol=1e-4)
+    grads = tfa.flash_attention_bwd(q, k, v, o, lse, do, causal=True)
+    refs = tfa.flash_attention_bwd_reference(q, k, v, o, lse, do,
+                                             causal=True)
+    for name, g, r in zip("qkv", grads, refs):
+        torch.testing.assert_close(g.float(), r.float(), rtol=TOL[dtype],
+                                   atol=TOL[dtype], msg=f"d{name}")
+
+
+@pytest.mark.gpu
+def test_gpt_tiny_engine_on_cuda_matches_cpu():
+    """gpt_tiny_config (head dim 16) serves on the card through the flash
+    and paged decode kernels with the CPU engine's greedy tokens (f32)."""
+    _cuda()
+    cfg = tgpt.gpt_tiny_config()
+    assert cfg.head_dim == 16
+    model = tgpt.GPTForPretraining(tgpt.GPTModel(cfg, seed=0, device="cpu"))
+    rng = np.random.default_rng(9)
+    prompts = [rng.integers(0, cfg.vocab_size, (n,)).astype(np.int32)
+               for n in (70, 33, 100)]
+    outs = []
+    for dev in ("cpu", "cuda"):
+        eng = ServingEngine(model, page_size=16, decode_buckets=(1, 2, 4),
+                            use_flash=True, device=dev)
+        sched = ContinuousBatchingScheduler(eng)
+        f0, p0 = tfa.launches, tpa.launches
+        reqs = [sched.submit(p, max_new_tokens=6) for p in prompts]
+        sched.run()
+        assert all(r.state == "finished" for r in reqs)
+        outs.append([r.output_ids for r in reqs])
+        if dev == "cuda":
+            assert tfa.launches - f0 == cfg.num_layers * len(prompts)
+            assert tpa.launches - p0 == cfg.num_layers * sched.steps
+    for a, b in zip(*outs):
+        np.testing.assert_array_equal(a, b)
+
+
+# ------------------------------------------------------------------ MoE
+
+def _dispatch_inputs(dev, dt, S, M, E, seed):
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy(rng.standard_normal((S, M)).astype(np.float32))
+    gw = torch.from_numpy((rng.standard_normal((M, E))
+                           / np.sqrt(M)).astype(np.float32))
+    gb = torch.from_numpy(rng.standard_normal(E).astype(np.float32) * 0.1)
+    return x.to(dev, dt), gw.to(dev), gb.to(dev)
+
+
+def check_dispatch(out, idx, x, gw, gb, E, C, K, kind):
+    """The kernel's dispatch against the plain version: the experts it
+    picked equal the plain version's except at near ties; comb_idx and
+    expert_in exactly the slot rule's for the picked experts; val (where
+    the picks agree), me and ce within 1e-6 of the largest |value|.
+    Returns the number of near ties."""
+    ref = tmd.reference_moe_dispatch(x, gw, gb, num_expert=E, capacity=C,
+                                     top_k=K, gate_kind=kind)
+    logits = tmd.gate_logits(x, gw, gb)
+    _, pidx = tmd._top_k(logits, K)
+    near = tmd.near_ties(logits, K)
+    flipped = (idx.long() != pidx).any(-1)
+    assert not (flipped & ~near).any(), "routing differs off a near tie"
+    st, comb = tmd.dispatch_indices(idx, num_expert=E, capacity=C)
+    assert torch.equal(out[1], comb)
+    xp = torch.cat([x, x.new_zeros(1, x.shape[1])])
+    assert torch.equal(out[0].reshape(E * C, -1), xp[st.long()])
+    same = ~flipped
+    for got, want in ((out[2][same], ref[2][same]), (out[3], ref[3]),
+                      (out[4], tmd.F.one_hot(idx[:, 0].long(), E)
+                       .float().mean(0))):
+        assert (got - want).abs().max() <= 1e-6 * want.abs().max()
+    return int(near.sum())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("S,M,E,C,K,kind", [
+    (13, 32, 4, 13, 2, "gshard"),       # the tiny config, C = S
+    (8, 768, 8, 8, 2, "gshard"),        # ERNIE base decode
+    (512, 768, 8, 512, 2, "gshard"),    # ERNIE base prefill
+    (130, 768, 8, 40, 2, "renorm"),     # ragged, dropping
+    (300, 64, 6, 30, 1, "switch"),
+    (77, 96, 5, 77, 3, "naive")])
+def test_moe_dispatch_kernel_matches_plain(dtype, S, M, E, C, K, kind):
+    dev = _cuda()
+    x, gw, gb = _dispatch_inputs(dev, getattr(torch, dtype), S, M, E, S + M)
+    n0 = tmd.dispatch_launches
+    out, idx = tmd._launch_dispatch(x, gw, gb, E, C, K, kind)
+    torch.cuda.synchronize()
+    assert tmd.dispatch_launches == n0 + 1
+    check_dispatch(out, idx, x, gw, gb, E, C, K, kind)
+    wb = (gw.bfloat16(), gb.bfloat16())            # bf16 gate weights
+    check_dispatch(*tmd._launch_dispatch(x, *wb, E, C, K, kind), x, *wb, E,
+                   C, K, kind)
+    # the same bits every run (no atomics)
+    out2, _ = tmd._launch_dispatch(x, gw, gb, E, C, K, kind)
+    for a, b in zip(out, out2):
+        assert torch.equal(a, b)
+
+
+def _within_one_bf16_spacing(a, b):
+    a, b = a.float(), b.float()
+    ulp = torch.exp2(torch.floor(torch.log2(b.abs().clamp_min(1e-30))) - 7)
+    return bool(((a - b).abs() <= ulp).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("S,M,E,C,K", [(13, 32, 4, 13, 2), (8, 768, 8, 8, 2),
+                                       (512, 768, 8, 512, 2),
+                                       (130, 768, 8, 40, 2), (9, 20, 3, 4, 3)])
+def test_moe_combine_kernel_matches_plain(dtype, S, M, E, C, K):
+    """The combine kernel against the plain version with its rounding
+    points (f32 within 1e-6 of the largest |y|, bf16 within one bf16
+    spacing) and against the einsum reference."""
+    dev = _cuda()
+    dt = getattr(torch, dtype)
+    x, gw, gb = _dispatch_inputs(dev, torch.float32, S, 16, E, S)
+    _, comb, val, _, _ = tmd.reference_moe_dispatch(
+        x, gw, gb, num_expert=E, capacity=C, top_k=K)
+    eo = torch.from_numpy(_rand((E * C, M), 3)).to(dev, dt)
+    n0 = tmd.combine_launches
+    y = tmd.fused_moe_combine(eo, val, comb)
+    torch.cuda.synchronize()
+    assert tmd.combine_launches == n0 + 1
+    ref = tmd.combine_kernel_reference(eo, val, comb)
+    einsum = tmd.reference_moe_combine(eo, val, comb)
+    if dtype == "float32":
+        top = ref.abs().max()
+        assert (y - ref).abs().max() <= 1e-6 * top
+        assert (y - einsum).abs().max() <= 1e-6 * top
+    else:
+        assert _within_one_bf16_spacing(y, ref)
+        torch.testing.assert_close(y.float(), einsum.float(), rtol=2e-2,
+                                   atol=2e-2)
+
+
+def _moe_tiny_cfg(**kw):
+    base = dict(num_hidden_layers=2, hidden_size=32, num_attention_heads=2,
+                intermediate_size=64, num_experts=4, capacity_factor=100.0,
+                max_position_embeddings=64)
+    base.update(kw)
+    return ternie.ernie_moe_tiny_config(**base)
+
+
+@pytest.mark.gpu
+def test_moe_engine_on_cuda_matches_cpu():
+    """The MoE engine on the card (f32; head dim 16 through the paged
+    decode kernel, both MoE kernels) gives the CPU engine's greedy tokens
+    and the eager generator's; each MoE layer launches the dispatch and
+    combine kernels once per prefill and decode step, each layer the
+    paged decode kernel once per decode step."""
+    _cuda()
+    cfg = _moe_tiny_cfg()
+    model = ternie.ErnieMoeForPretraining(
+        ternie.ErnieMoeModel(cfg, seed=0, device="cpu")).eval()
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(0, cfg.vocab_size, (n,)).astype(np.int32)
+               for n in (5, 9, 3, 12)]
+    outs = []
+    for dev in ("cpu", "cuda"):
+        eng = MoEServingEngine(model, page_size=8, decode_buckets=(1, 2, 4),
+                               device=dev)
+        sched = ContinuousBatchingScheduler(eng)
+        d0, c0, p0 = (tmd.dispatch_launches, tmd.combine_launches,
+                      tpa.launches)
+        reqs = [sched.submit(p, max_new_tokens=6) for p in prompts]
+        sched.run()
+        assert all(r.state == "finished" for r in reqs)
+        assert eng.pool.pages_in_use == 0
+        outs.append([list(r.tokens) for r in reqs])
+        if dev == "cuda":
+            n_moe = sum(k == "moe" for k in eng.kinds)
+            calls = len(prompts) + sched.steps
+            assert tmd.dispatch_launches - d0 == n_moe * calls
+            assert tmd.combine_launches - c0 == n_moe * calls
+            assert tpa.launches - p0 == cfg.num_hidden_layers * sched.steps
+    assert outs[0] == outs[1]
+    gen = ternie.ErnieMoeGenerator(model)
+    for p, toks in zip(prompts, outs[1]):
+        assert toks == list(gen(p, 6)[0])

@@ -165,7 +165,8 @@ def test_supported_gate():
     assert tfa.supported((2, 100, 4, 64), (2, 100, 2, 64), (2, 100, 2, 64),
                          causal=True)
     assert not tfa.supported((2, 32, 4, 64))       # below the profit line
-    assert not tfa.supported((2, 256, 4, 96))      # head dim the kernel lacks
+    assert tfa.supported((2, 256, 4, 96))          # any head dim <= 128
+    assert not tfa.supported((2, 256, 4, 160))     # past 128
     assert not tfa.supported((2, 256, 64))         # wrong rank
     assert not tfa.supported((1, 64, 4, 64), (1, 128, 4, 64), causal=True)
     assert tfa.supported((1, 64, 4, 64), (1, 128, 4, 64), causal=True,
