@@ -8,7 +8,8 @@ Twelve phases, one result per line:
    every CUDA kernel from ``paddle_tpu_torch/csrc`` with nvcc for sm_90a;
 2. ``flash``, ``flash_bwd``, ``paged`` — each kernel against its plain
    PyTorch version on the card, in bf16 and f32: the flash forward and the
-   paged decode at the serving shapes; the flash backward (dQ and dK/dV
+   paged decode at the serving shapes (the paged decode at GPT-345M's and
+   at ERNIE-MoE base's, 12 heads of 64); the flash backward (dQ and dK/dV
    kernels) over the forward's cases and a causal ``q_offset`` case, and
    through the autograd Function against autograd of the plain forward;
    then the forward and the backward at the training shape, on the q/k/v
@@ -30,9 +31,10 @@ Twelve phases, one result per line:
    and bf16 at ERNIE-MoE base width (M = 768, E = 8, top-2): the decode
    and prefill shapes, a ragged S = 130, a capacity-dropping S = 4096,
    every gate kind; the routing held exactly off router near ties
-   (counted and printed), the combine against the plain version with its
-   rounding points and against the einsum reference; both timed at the
-   two serving shapes with the stream held;
+   (counted and printed) and the public wrapper to the same bits, the
+   combine against the plain version with its rounding points and against
+   the einsum reference; both timed at the two serving shapes with the
+   stream held, the combine beside ``F.embedding_bag``;
 4. ``serving`` — the serving main path at the full width of GPT-345M (24
    layers, hidden 1024, 8 heads of 128, vocab 50304, random weights from a
    seed): eight ragged requests through ``ServingEngine`` +
@@ -527,37 +529,54 @@ def phase_flash_bwd(torch, res):
     res.update(out)
 
 
+def _page_table(torch, gen, B, pps):
+    """[B, pps] int32: each sequence's pages, shuffled over pages 1..B*pps."""
+    perm = torch.randperm(B * pps, device="cuda", generator=gen) + 1
+    return perm.reshape(B, pps).to(torch.int32).contiguous()
+
+
+def _paged_case(torch, pa, gen, dt, pt, nh, nkv, d, ps, lens, n_layers=1):
+    """The paged decode kernel against its plain version on the first of
+    ``n_layers`` layers of random pages, through the page table ``pt``, at
+    ragged ``lens`` (0: an idle slot, whose row must stay finite). Returns
+    (q, kp, vp, sl, err)."""
+    dev = torch.device("cuda")
+    dtype = getattr(torch, dt)
+    B, pps = pt.shape
+    npg = B * pps + 1
+    sl = torch.tensor(lens, dtype=torch.int32, device=dev)
+    live = torch.tensor([n > 0 for n in lens], device=dev)
+    kp = torch.randn(n_layers, npg, ps, nkv, d, device=dev,
+                     generator=gen).to(dtype)
+    vp = torch.randn(n_layers, npg, ps, nkv, d, device=dev,
+                     generator=gen).to(dtype)
+    q = torch.randn(B, nh, d, device=dev, generator=gen).to(dtype)
+    out = pa.paged_attention_decode(q, kp[0], vp[0], pt, sl)
+    torch.cuda.synchronize()
+    ref = pa.paged_attention_reference(q, kp[0], vp[0], pt, sl)
+    err, bias, ok = _check("paged", out[live], ref[live], dt)
+    finite = bool(torch.isfinite(out.float()).all())
+    ok = ok and finite
+    _log(f"paged_attention_decode {dt} B={B} nh={nh} nkv={nkv} d={d} "
+         f"page={ps} pages/seq={pps} lens={list(lens)}: max_abs_err={err:.3e} "
+         f"bias={bias:.2e} ({_tol_text('paged', dt)}) idle row "
+         f"finite={finite} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"paged kernel disagrees at {dt}, d={d}")
+    return q, kp, vp, sl, err
+
+
 def phase_paged(torch, res):
     from paddle_tpu_torch.kernels import paged_attention as pa
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(1)
     B, nh, nkv, d, ps, pps = 8, 8, 8, 128, 64, 16
     n_layers = 8        # cycled while timing: 270 MB of pages > 50 MB L2
-    npg = B * pps + 1
     lens = [970, 545, 734, 266, 897, 162, 428, 0]   # ragged, one idle slot
-    perm = torch.randperm(npg - 1, device=dev, generator=gen) + 1
-    pt = perm.reshape(B, pps).to(torch.int32).contiguous()
-    sl = torch.tensor(lens, dtype=torch.int32, device=dev)
-    live = torch.tensor([n > 0 for n in lens], device=dev)
+    pt = _page_table(torch, gen, B, pps)
     for dt in ("bfloat16", "float32"):
-        dtype = getattr(torch, dt)
-        kp = torch.randn(n_layers, npg, ps, nkv, d, device=dev,
-                         generator=gen).to(dtype)
-        vp = torch.randn(n_layers, npg, ps, nkv, d, device=dev,
-                         generator=gen).to(dtype)
-        q = torch.randn(B, nh, d, device=dev, generator=gen).to(dtype)
-        out = pa.paged_attention_decode(q, kp[0], vp[0], pt, sl)
-        torch.cuda.synchronize()
-        ref = pa.paged_attention_reference(q, kp[0], vp[0], pt, sl)
-        err, bias, ok = _check("paged", out[live], ref[live], dt)
-        finite = bool(torch.isfinite(out.float()).all())
-        ok = ok and finite
-        _log(f"paged_attention_decode {dt} B={B} nh={nh} nkv={nkv} d={d} "
-             f"page={ps} pages/seq={pps} lens={lens}: max_abs_err={err:.3e} "
-             f"bias={bias:.2e} ({_tol_text('paged', dt)}) idle row "
-             f"finite={finite} {'ok' if ok else 'FAIL'}")
-        if not ok:
-            raise AssertionError(f"paged kernel disagrees at {dt}")
+        q, kp, vp, sl, err = _paged_case(torch, pa, gen, dt, pt, nh, nkv, d,
+                                         ps, lens, n_layers)
         if dt != "bfloat16":
             continue
         def cycling(fn, step=[0]):
@@ -604,6 +623,14 @@ def phase_paged(torch, res):
             launches=None, max_abs_err=err, ms=ms, plain_ms=plain_ms,
             bound_ms=bound_ms, bound_by=by, library_ms=lib_ms)
         del kp, vp
+    # the MoE serving path's shape (another instance of the kernel): ERNIE-MoE
+    # base, 12 heads of 64, 8 pages of 64 (512 positions), the MoE cell's
+    # lengths after its 64 new tokens, one idle slot
+    moe_lens = [n + MAX_NEW for n in MOE_PROMPT_LENS[:7]] + [0]
+    pt = _page_table(torch, gen, 8, 512 // 64)
+    res["paged_moe_shape_err"] = {
+        dt: _paged_case(torch, pa, gen, dt, pt, 12, 12, 64, 64, moe_lens)[-1]
+        for dt in ("bfloat16", "float32")}
 
 
 def _prefill_case(torch, gen, dt, B, C, nh, d, ps, pps, n_shared=0,
@@ -887,10 +914,15 @@ def _check_dispatch(torch, md, x, gw, gb, C, K, kind):
     picked equal the plain version's except at router near ties; given its
     picks, comb_idx and expert_in are exactly the slot rule's and the row
     gather's; val (where the picks agree), me and ce within MOE_REL of the
-    largest |value|. Returns a reading, with ``ok``."""
+    largest |value|. The public wrapper (its autograd Function and device
+    routing, as the engine calls it) gives the same bits as the launch whose
+    picks are read. Returns a reading, with ``ok``."""
     E = MOE_E
     out, idx = md._launch_dispatch(x, gw, gb, E, C, K, kind)
+    pub = md.fused_moe_dispatch(x, gw, gb, num_expert=E, capacity=C,
+                                top_k=K, gate_kind=kind)
     torch.cuda.synchronize()
+    wrapper_same = all(bool(torch.equal(a, b)) for a, b in zip(pub, out))
     ref = md.reference_moe_dispatch(x, gw, gb, num_expert=E, capacity=C,
                                     top_k=K, gate_kind=kind)
     logits = md.gate_logits(x, gw, gb)
@@ -908,8 +940,10 @@ def _check_dispatch(torch, md, x, gw, gb, C, K, kind):
     val_abs = (out[2][same] - ref[2][same]).abs().max().item()
     off_tie = int((flipped & ~near).sum())
     dropped = int((out[1] == E * C).sum())
-    ok = exact and off_tie == 0 and max(rel.values()) <= MOE_REL
+    ok = exact and wrapper_same and off_tie == 0 \
+        and max(rel.values()) <= MOE_REL
     return dict(near_ties=int(near.sum()), flipped=int(flipped.sum()),
+                wrapper_same=wrapper_same,
                 val_max_abs_err=val_abs,
                 flipped_off_tie=off_tie, exact=exact, dropped=dropped,
                 exact_vs_plain=bool(torch.equal(out[1], ref[1])),
@@ -965,7 +999,8 @@ def phase_moe_dispatch(torch, res):
                  f"near ties {d['near_ties']}, picks differing {d['flipped']} "
                  f"({d['flipped_off_tie']} off a near tie), comb_idx and "
                  f"expert_in exact {d['exact']} (equal to the plain version's "
-                 f"{d['exact_vs_plain']}), dropped {d['dropped']}, val/me/ce "
+                 f"{d['exact_vs_plain']}), wrapper's bits equal "
+                 f"{d['wrapper_same']}, dropped {d['dropped']}, val/me/ce "
                  f"{d['val_rel']:.2e}/{d['me_rel']:.2e}/{d['ce_rel']:.2e} of "
                  f"max (tol {MOE_REL:g}) {'ok' if d['ok'] else 'FAIL'}; "
                  f"combine vs kernel form {c['max_rel_vs_kernel_form']:.2e}"
@@ -982,7 +1017,10 @@ def phase_moe_dispatch(torch, res):
     res["moe_near_ties"] = near_total
     if failed:
         raise AssertionError(f"MoE kernels disagree: {failed}")
-    # time both kernels at the serving shapes, bf16, the stream held
+    # time both kernels at the serving shapes, bf16, the stream held; the
+    # combine's library call is F.embedding_bag (sum of rows weighted per
+    # sample) over the rows with a zero row appended for the sentinel and
+    # val in the rows' dtype, both made once and not timed
     shapes = {}
     for label, S in (("decode", 8), ("prefill", 512)):
         C, K = S, 2
@@ -992,6 +1030,21 @@ def phase_moe_dispatch(torch, res):
             ei, comb, val, _, _ = md.fused_moe_dispatch(x, gw, gb, **kw)
             eo = torch.randn(MOE_E * C, MOE_M, device="cuda",
                              generator=gen).to(ei.dtype)
+            eo_pad = torch.cat([eo, eo.new_zeros(1, MOE_M)])
+            val_dt = val.to(eo.dtype)
+
+            def lib():
+                return torch.nn.functional.embedding_bag(
+                    comb, eo_pad, per_sample_weights=val_dt, mode="sum",
+                    padding_idx=MOE_E * C)
+            lib_y = lib()
+            _, lib_share, lib_rms, _ = _scaled_err(
+                lib_y, md.reference_moe_combine(eo, val, comb))
+            if not (lib_share <= MOE_COMBINE_EINSUM_TOL[0]
+                    and lib_rms <= MOE_COMBINE_EINSUM_TOL[1]):
+                raise AssertionError(
+                    f"embedding_bag does not compute the combine at {label}: "
+                    f"{lib_share:.2e} of max, rms {lib_rms:.2e}")
             t = dict(
                 dispatch=_time_held_ms(torch, lambda: md.fused_moe_dispatch(
                     x, gw, gb, **kw), 100),
@@ -1005,7 +1058,8 @@ def phase_moe_dispatch(torch, res):
                     20),
                 combine_einsum=_time_held_ms(
                     torch, lambda: md.reference_moe_combine(eo, val, comb),
-                    20))
+                    20),
+                combine_library=_time_held_ms(torch, lib, 100))
         item = x.element_size()
         d_bytes = (S * MOE_M * item + MOE_M * MOE_E * item + MOE_E * item
                    + MOE_E * C * MOE_M * item          # the whole buffer
@@ -1023,8 +1077,10 @@ def phase_moe_dispatch(torch, res):
              f"{t['dispatch_plain']:.4f} ms, bound {d_bound:.5f} ms ({d_by}: "
              f"{d_bytes / 1e6:.3f} MB); combine kernel {t['combine']:.4f} ms,"
              f" plain {t['combine_plain']:.4f} ms (einsum "
-             f"{t['combine_einsum']:.4f} ms), bound {c_bound:.5f} ms ({c_by}:"
-             f" {c_bytes / 1e6:.3f} MB); library none")
+             f"{t['combine_einsum']:.4f} ms), embedding_bag "
+             f"{t['combine_library']:.4f} ms (vs einsum {lib_share:.2e} of "
+             f"max, rms {lib_rms:.2e}), bound {c_bound:.5f} ms ({c_by}: "
+             f"{c_bytes / 1e6:.3f} MB); dispatch library none")
     dec = shapes["decode"]
     worst = lambda dt, part, key: max(                  # noqa: E731
         r[part][key] for r in readings if r["dtype"] == dt)
@@ -1046,7 +1102,9 @@ def phase_moe_dispatch(torch, res):
                                          "max_abs_err"),
         ms=dec["combine_ms"], plain_ms=dec["combine_plain_ms"],
         bound_ms=dec["combine_bound_ms"], bound_by=dec["combine_bound_by"],
-        library_ms=None, timed="the decode shape S = C = 8, M = 768, k = 2",
+        library_ms=dec["combine_library_ms"],
+        timed="the decode shape S = C = 8, M = 768, k = 2; library: "
+              "F.embedding_bag(mode='sum', per_sample_weights)",
         shapes=shapes)
 
 

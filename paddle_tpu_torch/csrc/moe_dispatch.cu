@@ -5,7 +5,8 @@
 // _combine_pallas). Same functions:
 //
 // Dispatch. Per token s of x [S, M]: f32 logits = x[s] . gate_w + gate_b
-// (gate_w [M, E], read in its stored dtype and widened to f32), the f32
+// (gate_w [M, E] and gate_b [E], each read in its own stored dtype and
+// widened to f32), the f32
 // softmax over the E experts, top-k by K masked-argmax rounds over the
 // logits (ties to the lowest expert index, as lax.top_k), and the combine
 // weight of each choice by gate kind (naive: the logit; switch: the
@@ -76,8 +77,9 @@ struct Work {
 template <typename T, typename W>
 __global__ void __launch_bounds__(kNT)
 moe_gate_kernel(const T* __restrict__ x, const W* __restrict__ gw,
-                const W* __restrict__ gb, float* __restrict__ val, Work wk,
-                int S, int M, int x_rs, int E, int K, int nblk, int kind) {
+                const void* __restrict__ gb, int b_bf16,
+                float* __restrict__ val, Work wk, int S, int M, int x_rs,
+                int E, int K, int nblk, int kind) {
   extern __shared__ float smem[];
   float* lg = smem;                       // [kTB][E] logits
   float* pr = lg + kTB * E;               // [kTB][E] probabilities
@@ -98,7 +100,11 @@ moe_gate_kernel(const T* __restrict__ x, const W* __restrict__ gw,
         a = fmaf(to_float<T>(xr[m]), to_float<W>(gw[(long long)m * E + e]), a);
 #pragma unroll
       for (int off = 16; off > 0; off >>= 1) a += __shfl_xor_sync(0xffffffffu, a, off);
-      if (lane == 0) lg[t * E + e] = a + to_float<W>(gb[e]);
+      if (lane == 0)
+        lg[t * E + e] =
+            a + (b_bf16 ? to_float<__nv_bfloat16>(
+                         static_cast<const __nv_bfloat16*>(gb)[e])
+                        : static_cast<const float*>(gb)[e]);
     }
     __syncwarp();
     if (lane == 0) {
@@ -296,6 +302,7 @@ moe_combine_kernel(const T* __restrict__ eo, const float* __restrict__ val,
 
 template <typename T, typename W>
 cudaError_t launch_dispatch(const void* x, const void* gw, const void* gb,
+                            int bdtype,
                             void* out, void* comb, void* val, void* me,
                             void* ce, void* work, int S, int M, int x_rs,
                             int E, int K, int C, int kind, int vec,
@@ -318,7 +325,7 @@ cudaError_t launch_dispatch(const void* x, const void* gw, const void* gb,
   if (e != cudaSuccess) return e;
   gate<<<nblk, kNT, smem, stream>>>(static_cast<const T*>(x),
                                     static_cast<const W*>(gw),
-                                    static_cast<const W*>(gb),
+                                    gb, bdtype == kBF16,
                                     static_cast<float*>(val), wk, S, M, x_rs,
                                     E, K, nblk, kind);
   if ((e = cudaGetLastError()) != cudaSuccess) return e;
@@ -348,7 +355,8 @@ static long long moe_dispatch_work_words(int S, int E, int K) {
 }
 
 // The dispatch. x is [S, M] with unit stride along M and row stride x_rs
-// (elements); gate_w [M, E] and gate_b [E] are contiguous, in wdtype; out
+// (elements); gate_w [M, E] (in wdtype) and gate_b [E] (in bdtype) are
+// contiguous; out
 // ([E * C, M], x's dtype), comb ([S, K] int32), val ([S, K] f32), me and ce
 // ([E] f32) are contiguous; work is int32 scratch of work_words words
 // (at least S*K + 2*K*nblk*E + E, rounded up to even, + 2*nblk*E, with
@@ -359,23 +367,25 @@ static long long moe_dispatch_work_words(int S, int E, int K) {
 extern "C" int ptt_moe_dispatch(const void* x, const void* gw, const void* gb,
                                 void* out, void* comb, void* val, void* me,
                                 void* ce, void* work, long long work_words,
-                                int dtype, int wdtype, int S, int M, int x_rs,
+                                int dtype, int wdtype, int bdtype, int S,
+                                int M, int x_rs,
                                 int E, int K, int C, int kind, int vec,
                                 void* stream) {
   using namespace ptt;
   if (S < 1 || M < 1 || E < 1 || E > 512 || K < 1 || K > E || C < 1 ||
-      kind < 0 || kind > 3 || work_words < moe_dispatch_work_words(S, E, K))
+      kind < 0 || kind > 3 || (bdtype != kF32 && bdtype != kBF16) ||
+      work_words < moe_dispatch_work_words(S, E, K))
     return static_cast<int>(cudaErrorInvalidValue);
   auto s = static_cast<cudaStream_t>(stream);
   cudaError_t e = cudaErrorInvalidValue;
   if (dtype == kF32 && wdtype == kF32)
-    e = launch_dispatch<float, float>(x, gw, gb, out, comb, val, me, ce, work, S, M, x_rs, E, K, C, kind, vec, s);
+    e = launch_dispatch<float, float>(x, gw, gb, bdtype, out, comb, val, me, ce, work, S, M, x_rs, E, K, C, kind, vec, s);
   else if (dtype == kF32 && wdtype == kBF16)
-    e = launch_dispatch<float, __nv_bfloat16>(x, gw, gb, out, comb, val, me, ce, work, S, M, x_rs, E, K, C, kind, vec, s);
+    e = launch_dispatch<float, __nv_bfloat16>(x, gw, gb, bdtype, out, comb, val, me, ce, work, S, M, x_rs, E, K, C, kind, vec, s);
   else if (dtype == kBF16 && wdtype == kF32)
-    e = launch_dispatch<__nv_bfloat16, float>(x, gw, gb, out, comb, val, me, ce, work, S, M, x_rs, E, K, C, kind, vec, s);
+    e = launch_dispatch<__nv_bfloat16, float>(x, gw, gb, bdtype, out, comb, val, me, ce, work, S, M, x_rs, E, K, C, kind, vec, s);
   else if (dtype == kBF16 && wdtype == kBF16)
-    e = launch_dispatch<__nv_bfloat16, __nv_bfloat16>(x, gw, gb, out, comb, val, me, ce, work, S, M, x_rs, E, K, C, kind, vec, s);
+    e = launch_dispatch<__nv_bfloat16, __nv_bfloat16>(x, gw, gb, bdtype, out, comb, val, me, ce, work, S, M, x_rs, E, K, C, kind, vec, s);
   return static_cast<int>(e);
 }
 

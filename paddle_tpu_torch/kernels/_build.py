@@ -69,7 +69,7 @@ _SIGNATURES = {
                         _P],                                 # stream
     "ptt_moe_dispatch": [_P, _P, _P, _P, _P, _P, _P, _P,     # x gw gb out comb val me ce
                          _P, _L,                             # work, its words
-                         _I, _I, _I, _I, _I, _I, _I, _I,     # dtype wdtype S M x_rs E K C
+                         _I, _I, _I, _I, _I, _I, _I, _I, _I,  # dtype wdtype bdtype S M x_rs E K C
                          _I, _I, _P],                        # kind vec stream
     "ptt_moe_combine": [_P, _P, _P, _P,                      # eo val comb y
                         _I, _I, _I, _I, _I, _I,              # dtype S M K EC vec

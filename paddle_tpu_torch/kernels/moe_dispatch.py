@@ -216,8 +216,8 @@ def _launch_dispatch(x, gate_w, gate_b, E, C, K, kind):
     if x.dtype not in _DTYPE_CODES or gate_w.dtype not in _DTYPE_CODES:
         raise TypeError(f"dispatch kernel takes float32 or bfloat16 x and "
                         f"gate_w, got {x.dtype}, {gate_w.dtype}")
-    if gate_b.dtype != gate_w.dtype:
-        gate_b = gate_b.to(gate_w.dtype)
+    if gate_b.dtype not in _DTYPE_CODES:   # the kernel widens f32 or bf16
+        gate_b = gate_b.float()             # as it is; others as JAX does
     if x.stride(1) != 1 or not (gate_w.is_contiguous()
                                 and gate_b.is_contiguous()):
         raise ValueError("dispatch kernel needs x with unit stride along M "
@@ -245,7 +245,8 @@ def _launch_dispatch(x, gate_w, gate_b, E, C, K, kind):
             x.data_ptr(), gate_w.data_ptr(), gate_b.data_ptr(),
             out.data_ptr(), comb.data_ptr(), val.data_ptr(), me.data_ptr(),
             ce.data_ptr(), work.data_ptr(), words, _DTYPE_CODES[x.dtype],
-            _DTYPE_CODES[gate_w.dtype], S, M, x.stride(0), E, K, C,
+            _DTYPE_CODES[gate_w.dtype], _DTYPE_CODES[gate_b.dtype], S, M,
+            x.stride(0), E, K, C,
             GATE_KINDS.index(kind), int(vec),
             torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "fused_moe_dispatch")

@@ -515,6 +515,20 @@ def test_moe_dispatch_kernel_matches_plain(dtype, S, M, E, C, K, kind):
         assert torch.equal(a, b)
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("w_dtype,b_dtype", [("bfloat16", "float32"),
+                                             ("float32", "bfloat16")])
+def test_moe_dispatch_kernel_mixed_gate_dtypes(w_dtype, b_dtype):
+    """A gate weight and bias of different dtypes reach the kernel each in
+    its own dtype: an f32 bias is not rounded to a bf16 weight's dtype."""
+    dev = _cuda()
+    S, M, E, C, K = 8, 768, 8, 8, 2
+    x, gw, gb = _dispatch_inputs(dev, torch.bfloat16, S, M, E, 5)
+    gw, gb = gw.to(getattr(torch, w_dtype)), gb.to(getattr(torch, b_dtype))
+    check_dispatch(*tmd._launch_dispatch(x, gw, gb, E, C, K, "gshard"), x,
+                   gw, gb, E, C, K, "gshard")
+
+
 def _within_one_bf16_spacing(a, b):
     a, b = a.float(), b.float()
     ulp = torch.exp2(torch.floor(torch.log2(b.abs().clamp_min(1e-30))) - 7)

@@ -83,6 +83,23 @@ def test_dispatch_bf16_matches_jax():
                          fn.__name__)
 
 
+@pytest.mark.parametrize("w_dtype,b_dtype", [("bfloat16", "float32"),
+                                             ("float32", "bfloat16")])
+def test_dispatch_mixed_gate_dtypes_match_jax(w_dtype, b_dtype):
+    """A gate weight and bias of different dtypes are each widened to f32
+    on their own, as the JAX wrapper does; neither is rounded to the
+    other's dtype."""
+    x, gw, gb = _inputs(24, 4)
+    kw = dict(num_expert=4, capacity=24, top_k=2, gate_kind="gshard")
+    tw = torch.from_numpy(gw).to(getattr(torch, w_dtype))
+    tb = torch.from_numpy(gb).to(getattr(torch, b_dtype))
+    got = tmd.fused_moe_dispatch(torch.from_numpy(x), tw, tb, **kw)
+    jw = jnp.asarray(gw).astype(getattr(jnp, w_dtype))
+    jb = jnp.asarray(gb).astype(getattr(jnp, b_dtype))
+    for fn in (jmd.reference_moe_dispatch, jmd.fused_moe_dispatch):
+        _assert_dispatch(got, fn(jnp.asarray(x), jw, jb, **kw), fn.__name__)
+
+
 def test_dispatch_indices_and_top_k_ties():
     """The slot rule, and top-k ties to the lowest index (as lax.top_k)."""
     idx = np.array([[0, 1], [0, 2], [1, 0], [0, 1]], np.int32)
