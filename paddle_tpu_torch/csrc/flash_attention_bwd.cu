@@ -1,6 +1,7 @@
 // FlashAttention-2 backward for sm_90a: the C entries of the dQ and dK/dV
 // passes and their kernels at the built head dims (the kernels, their
-// design and their bound: flash_attention_bwd.cuh).
+// design and their bound: flash_attention_bwd.cuh for f32,
+// flash_attention_bwd_tc.cuh for bf16).
 #include "flash_attention_bwd.cuh"
 
 // The dQ pass. q/o/dout/dq are [B, Sq, Nq, D] and k/v [B, Sk, Nkv, D]

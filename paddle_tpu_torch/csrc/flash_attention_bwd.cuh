@@ -17,12 +17,15 @@
 // rounded to the input dtype before dS K and dS^T Q; each output is
 // rounded once, at the end.
 //
+// Dtypes: these are the f32 kernels, on the CUDA cores, whose f32 sums
+// the f32 limits need. bf16 operands go to the tensor-core kernels of
+// flash_attention_bwd_tc.cuh (launch_dq / launch_dkv route by dtype).
+//
 // What bounds it on an H100: at the training shape (B = 12, S = 1024,
 // 8 heads of 128, causal) the two passes need 5 products of S x S x D per
-// head, halved by the mask (~64 GFLOP: 65 us on the bf16 tensor cores),
-// against ~200 MB of traffic (60 us); the ideal pair sits at the ridge.
-// This first version computes on the CUDA cores in f32 (no wgmma, no TMA),
-// so it is bound by shared-memory bandwidth and FMA issue, far above that.
+// head, halved by the mask, against ~200 MB of traffic. These kernels
+// compute in f32 on the CUDA cores (67 TFLOP/s at most), so they are
+// bound by shared-memory bandwidth and FMA issue, far above that.
 //
 // Design. The TPU walks the reduction as a sequential ("arbitrary") grid
 // dimension with the sum in VMEM scratch; here one block owns one output
@@ -52,6 +55,7 @@
 #pragma once
 
 #include "common.cuh"
+#include "flash_attention_bwd_tc.cuh"
 
 namespace ptt {
 namespace flash_bwd {
@@ -391,21 +395,27 @@ cudaError_t launch_dq(const void* q, const void* k, const void* v,
                       void* delta, void* dq, int B, int Nq, int Nkv, int Sq,
                       int Sk, int hd, const int* st, int causal, int q_offset,
                       float scale, cudaStream_t stream) {
-  constexpr size_t smem = dq_smem_bytes<D>();
-  auto kern = flash_bwd_dq_kernel<T, D, FULL>;
-  cudaError_t e = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e != cudaSuccess) return e;
-  const dim3 grid((Sq + kB - 1) / kB, B * Nq);
-  kern<<<grid, kNT, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(o),
-      static_cast<const T*>(dout), static_cast<const float*>(lse),
-      static_cast<float*>(delta), static_cast<T*>(dq), Nq, Nkv, Sq, Sk, hd,
-      st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8], st[9],
-      st[10], st[11], st[12], st[13], st[14], st[15], st[16], st[17], causal,
-      q_offset, scale);
-  return cudaGetLastError();
+  if constexpr (std::is_same_v<T, __nv_bfloat16>) {
+    return flash_bwd_tc::launch_dq<D, FULL>(q, k, v, o, dout, lse, delta, dq,
+                                            B, Nq, Nkv, Sq, Sk, hd, st, causal,
+                                            q_offset, scale, stream);
+  } else {
+    constexpr size_t smem = dq_smem_bytes<D>();
+    auto kern = flash_bwd_dq_kernel<T, D, FULL>;
+    cudaError_t e = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return e;
+    const dim3 grid((Sq + kB - 1) / kB, B * Nq);
+    kern<<<grid, kNT, smem, stream>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k),
+        static_cast<const T*>(v), static_cast<const T*>(o),
+        static_cast<const T*>(dout), static_cast<const float*>(lse),
+        static_cast<float*>(delta), static_cast<T*>(dq), Nq, Nkv, Sq, Sk, hd,
+        st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8], st[9],
+        st[10], st[11], st[12], st[13], st[14], st[15], st[16], st[17],
+        causal, q_offset, scale);
+    return cudaGetLastError();
+  }
 }
 
 template <typename T, int D, bool FULL>
@@ -414,21 +424,27 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v,
                        void* dk, void* dv, int B, int Nq, int Nkv, int Sq,
                        int Sk, int hd, const int* st, int causal,
                        int q_offset, float scale, cudaStream_t stream) {
-  constexpr size_t smem = dkv_smem_bytes<D>();
-  auto kern = flash_bwd_dkv_kernel<T, D, FULL>;
-  cudaError_t e = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e != cudaSuccess) return e;
-  const dim3 grid((Sk + kB - 1) / kB, B * Nkv);
-  kern<<<grid, kNT, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(dout),
-      static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<T*>(dk), static_cast<T*>(dv), Nq, Nkv, Sq, Sk, hd, st[0],
-      st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8], st[9], st[10],
-      st[11], st[12], st[13], st[14], st[15], st[16], st[17], causal,
-      q_offset, scale);
-  return cudaGetLastError();
+  if constexpr (std::is_same_v<T, __nv_bfloat16>) {
+    return flash_bwd_tc::launch_dkv<D, FULL>(q, k, v, dout, lse, delta, dk,
+                                             dv, B, Nq, Nkv, Sq, Sk, hd, st,
+                                             causal, q_offset, scale, stream);
+  } else {
+    constexpr size_t smem = dkv_smem_bytes<D>();
+    auto kern = flash_bwd_dkv_kernel<T, D, FULL>;
+    cudaError_t e = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return e;
+    const dim3 grid((Sk + kB - 1) / kB, B * Nkv);
+    kern<<<grid, kNT, smem, stream>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k),
+        static_cast<const T*>(v), static_cast<const T*>(dout),
+        static_cast<const float*>(lse), static_cast<const float*>(delta),
+        static_cast<T*>(dk), static_cast<T*>(dv), Nq, Nkv, Sq, Sk, hd, st[0],
+        st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8], st[9], st[10],
+        st[11], st[12], st[13], st[14], st[15], st[16], st[17], causal,
+        q_offset, scale);
+    return cudaGetLastError();
+  }
 }
 
 inline bool bad_args(int B, int Nq, int Nkv, int Sq, int Sk, int q_offset) {

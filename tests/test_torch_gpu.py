@@ -122,6 +122,73 @@ def test_flash_function_grads_on_strided_qkv_views():
     torch.testing.assert_close(grads[0], grads[1], rtol=2e-2, atol=2e-2)
 
 
+def _fused_qkv_views(B, S, N, Nkv, D, seed):
+    """q, k, v as the slices of one fused [B, S, N + 2 Nkv, D] bf16
+    projection (row stride (N + 2 Nkv) D), and an output gradient."""
+    qkv = torch.from_numpy(_rand((B, S, N + 2 * Nkv, D), seed)).to(
+        "cuda", torch.bfloat16)
+    do = torch.from_numpy(_rand((B, S, N, D), seed + 1)).to(
+        "cuda", torch.bfloat16)
+    return (*qkv.split([N, Nkv, Nkv], dim=2), do)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("nkv", [8, 2])
+def test_flash_bwd_bf16_repeats_bit_for_bit(nkv):
+    """The bf16 dQ and dK/dV kernels use no atomics: two calls on the same
+    inputs (the training layout, fused-QKV views, S = 1024, 8 heads of 128;
+    and GQA) give the same bits."""
+    _cuda()
+    q, k, v, do = _fused_qkv_views(2, 1024, 8, nkv, 128, 41)
+    o, lse = tfa.flash_attention_fwd(q, k, v, causal=True)
+    first = tfa.flash_attention_bwd(q, k, v, o, lse, do, causal=True)
+    second = tfa.flash_attention_bwd(q, k, v, o, lse, do, causal=True)
+    for name, a, b in zip("qkv", first, second):
+        assert torch.equal(a, b), f"d{name}"
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", [80, 112])
+def test_flash_bwd_bf16_masked_head_dims(d):
+    """bf16 at head dims the 128 instance runs masked (columns d..127
+    zero-filled and never stored), causal with GQA, on fused-QKV views,
+    against the plain backward."""
+    _cuda()
+    q, k, v, do = _fused_qkv_views(2, 300, 4, 2, d, 43)
+    o, lse = tfa.flash_attention_fwd(q, k, v, causal=True)
+    n_dq, n_dkv = tfa.dq_launches, tfa.dkv_launches
+    grads = tfa.flash_attention_bwd(q, k, v, o, lse, do, causal=True)
+    torch.cuda.synchronize()
+    assert (tfa.dq_launches, tfa.dkv_launches) == (n_dq + 1, n_dkv + 1)
+    refs = tfa.flash_attention_bwd_reference(q, k, v, o, lse, do,
+                                             causal=True)
+    for name, g, r in zip("qkv", grads, refs):
+        assert g.shape == r.shape and g.dtype == torch.bfloat16, name
+        torch.testing.assert_close(g.float(), r.float(), rtol=TOL["bfloat16"],
+                                   atol=TOL["bfloat16"], msg=f"d{name}")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_bwd_ragged_offset_edges_in_one_tile(dtype):
+    """Causal with q_offset = 100, Sq = 1000, Sk = 1100, GQA: the diagonal
+    (not tile-aligned) and the Sq and Sk edges fall inside tiles."""
+    dev = _cuda()
+    dt = getattr(torch, dtype)
+    B, Sq, Sk, N, Nkv, D, off = 1, 1000, 1100, 4, 2, 128, 100
+    q, k, v, do = (torch.from_numpy(_rand(shape, seed)).to(dev, dt)
+                   for shape, seed in (((B, Sq, N, D), 45), ((B, Sk, Nkv, D), 46),
+                                       ((B, Sk, Nkv, D), 47), ((B, Sq, N, D), 48)))
+    o, lse = tfa.flash_attention_fwd(q, k, v, causal=True, q_offset=off)
+    grads = tfa.flash_attention_bwd(q, k, v, o, lse, do, causal=True,
+                                    q_offset=off)
+    refs = tfa.flash_attention_bwd_reference(q, k, v, o, lse, do,
+                                             causal=True, q_offset=off)
+    for name, g, r in zip("qkv", grads, refs):
+        torch.testing.assert_close(g.float(), r.float(), rtol=TOL[dtype],
+                                   atol=TOL[dtype], msg=f"d{name}")
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("nkv", [8, 4])
