@@ -43,7 +43,12 @@
 // Every product is mma.sync m16n8k16 bf16 -> f32 (tensor_core.cuh); the
 // tensor cores' own additions truncate, so each 16-deep step of S and dP,
 // and each tile's product of dQ, dK and dV, is added to its f32 sum on the
-// CUDA cores (mma_rn). The
+// CUDA cores (tc::mma_rn). Where the dK/dV pass's P lies near a bf16
+// rounding tie (its low bits within tc::kTieMargin ulps of one), S is
+// summed again in the plain version's order (tc::dot_in_order), so that P
+// rounds for dV as there: a sum in another order flipped such roundings
+// and put dv over its elementwise limit on 1 of 6 random inputs, which
+// the recompute removes for +32% on the pass (PERF.md). The
 // operands stay bf16 in shared memory in an XOR-swizzled layout, read by
 // ldmatrix (.trans for the [k][n] operands: K in dS K, dO in P^T dO, Q in
 // dS^T Q) without bank conflicts. Streamed tiles arrive by cp.async 16-byte
@@ -52,7 +57,8 @@
 // above q_offset + row) or run past Sq or Sk evaluate them. Rows past Sq
 // or Sk are zero-filled in shared memory; a masked instance (hd < D)
 // zero-fills columns hd..D-1, copies a chunk that is not whole or not
-// 16-byte aligned element by element, and never stores those columns. No
+// 16-byte aligned element by element, and never stores those columns
+// (tc::load_tile, tc::store_rows, shared with the forward). No
 // input is padded or copied: q/k/v may be strided views of one fused QKV
 // projection. Results go out through the warp's own rows of a resident
 // tile (Q in dQ, K and V in dK/dV), in 16-byte stores.
@@ -78,19 +84,6 @@ constexpr int kB = 64;     // rows of a query or key tile
 constexpr int kNT = 128;   // threads per block: 4 warps of 16 rows
 constexpr int kQS = 16;    // query columns of a dK/dV sub-step
 
-// d += a * b: the tensor cores sum the 16 products of the step into a
-// fresh accumulator, which is added to d in f32 on the CUDA cores (round
-// to nearest). S and dP are summed this way: chained in the tensor cores,
-// whose additions truncate, they drift further from the plain version's
-// f32 sums, and more bf16 roundings of P and dS flip (PERF.md).
-__device__ __forceinline__ void mma_rn(float (&d)[4], const uint32_t (&a)[4],
-                                       uint32_t b0, uint32_t b1) {
-  float t[4] = {0.f, 0.f, 0.f, 0.f};
-  tc::mma_bf16(t, a, b0, b1);
-#pragma unroll
-  for (int e = 0; e < 4; ++e) d[e] += t[e];
-}
-
 template <int D>
 __host__ __device__ constexpr uint32_t tile_bytes() {
   return kB * D * sizeof(bf16);
@@ -104,80 +97,6 @@ constexpr size_t dq_smem_bytes() {
 template <int D>
 constexpr size_t dkv_smem_bytes() {
   return 6 * tile_bytes<D>() + 4 * kB * sizeof(float);
-}
-
-// rows [r0, r0 + kB) of a [S, hd] view (row stride ss) into the swizzled
-// tile at dst: cp.async 16-byte copies; rows at or past S, and columns at
-// or past hd, become zeros
-template <int D, bool FULL>
-__device__ __forceinline__ void load_tile(uint32_t dst, const bf16* src,
-                                          int ss, int r0, int S, int hd) {
-  constexpr int CPR = D / 8;
-#pragma unroll
-  for (int i = 0; i < kB * CPR / kNT; ++i) {
-    const int idx = threadIdx.x + i * kNT;
-    const int r = idx / CPR;
-    const int c = idx % CPR;
-    const uint32_t d = dst + tc::chunk_offset<CPR>(r, c);
-    const bf16* g = src + (long long)(r0 + r) * ss + c * 8;
-    if (r0 + r >= S) {
-      tc::st_shared_v4(d, make_uint4(0u, 0u, 0u, 0u));
-    } else if constexpr (FULL) {
-      tc::cp_async16(d, g);
-    } else {
-      const int n = hd - c * 8;  // columns of this chunk before hd
-      if (n >= 8 && (reinterpret_cast<uintptr_t>(g) & 15) == 0) {
-        tc::cp_async16(d, g);
-      } else {  // narrower: element by element, zeros at and past hd
-        const unsigned short* e = reinterpret_cast<const unsigned short*>(g);
-        uint32_t w[4];
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const uint32_t lo = 2 * j < n ? e[2 * j] : 0u;
-          const uint32_t hi = 2 * j + 1 < n ? e[2 * j + 1] : 0u;
-          w[j] = lo | (hi << 16);
-        }
-        tc::st_shared_v4(d, make_uint4(w[0], w[1], w[2], w[3]));
-      }
-    }
-  }
-}
-
-// one warp: acc (rows r0 + lane / 4 and + 8 of a 16-row slab, D columns
-// as D / 8 C fragments) rounded to bf16 into those rows of the swizzled
-// tile at tile, then the slab's rows below S out to dst (row stride ss),
-// columns below hd
-template <int D, bool FULL>
-__device__ __forceinline__ void store_rows(float (&acc)[D / 8][4],
-                                           uint32_t tile, int r0, bf16* dst,
-                                           int ss, int row0, int S, int hd,
-                                           int lane) {
-  constexpr int CPR = D / 8;
-  const int g = lane >> 2, t = lane & 3;
-#pragma unroll
-  for (int nt = 0; nt < D / 8; ++nt) {
-    tc::st_shared_b32(tile + tc::chunk_offset<CPR>(r0 + g, nt) + 4 * t,
-                      tc::pack_bf16(acc[nt][0], acc[nt][1]));
-    tc::st_shared_b32(tile + tc::chunk_offset<CPR>(r0 + g + 8, nt) + 4 * t,
-                      tc::pack_bf16(acc[nt][2], acc[nt][3]));
-  }
-  __syncwarp();
-#pragma unroll
-  for (int i = 0; i < 16 * CPR / 32; ++i) {
-    const int idx = lane + i * 32;
-    const int r = idx / CPR;
-    const int c = idx % CPR;
-    if (row0 + r0 + r >= S) continue;
-    const uint4 v = tc::ld_shared_v4(tile + tc::chunk_offset<CPR>(r0 + r, c));
-    bf16* out = dst + (long long)(row0 + r0 + r) * ss + c * 8;
-    const int n = FULL ? 8 : hd - c * 8;
-    if (n >= 8 && (FULL || (reinterpret_cast<uintptr_t>(out) & 15) == 0)) {
-      *reinterpret_cast<uint4*>(out) = v;
-    } else if (n > 0) {
-      const bf16* e = reinterpret_cast<const bf16*>(&v);
-      for (int j = 0; j < n && j < 8; ++j) out[j] = e[j];
-    }
-  }
 }
 
 template <int D, bool FULL>
@@ -224,10 +143,10 @@ flash_bwd_dq_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   if (causal) kv_end = min(Sk, q_offset + min(q0 + kB, Sq));
   const int ntiles = (kv_end + kB - 1) / kB;
 
-  load_tile<D, FULL>(sQ, qb, q_ss, q0, Sq, hd);
-  load_tile<D, FULL>(sdO, dob, do_ss, q0, Sq, hd);
-  load_tile<D, FULL>(sK, kb, k_ss, 0, Sk, hd);
-  load_tile<D, FULL>(sV, vb, v_ss, 0, Sk, hd);
+  tc::load_tile<kB, kNT, D, FULL>(sQ, tc::Strided{qb, q_ss}, q0, Sq, hd);
+  tc::load_tile<kB, kNT, D, FULL>(sdO, tc::Strided{dob, do_ss}, q0, Sq, hd);
+  tc::load_tile<kB, kNT, D, FULL>(sK, tc::Strided{kb, k_ss}, 0, Sk, hd);
+  tc::load_tile<kB, kNT, D, FULL>(sV, tc::Strided{vb, v_ss}, 0, Sk, hd);
   tc::cp_async_commit();
 
   // Delta = rowsum(dO * O) in f32, two threads a row (adjacent lanes),
@@ -271,8 +190,10 @@ flash_bwd_dq_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     const uint32_t stK = sK + (j & 1) * TB;
     const uint32_t stV = sV + (j & 1) * TB;
     if (j + 1 < ntiles) {
-      load_tile<D, FULL>(sK + ((j + 1) & 1) * TB, kb, k_ss, k0 + kB, Sk, hd);
-      load_tile<D, FULL>(sV + ((j + 1) & 1) * TB, vb, v_ss, k0 + kB, Sk, hd);
+      tc::load_tile<kB, kNT, D, FULL>(sK + ((j + 1) & 1) * TB,
+                                      tc::Strided{kb, k_ss}, k0 + kB, Sk, hd);
+      tc::load_tile<kB, kNT, D, FULL>(sV + ((j + 1) & 1) * TB,
+                                      tc::Strided{vb, v_ss}, k0 + kB, Sk, hd);
     }
     tc::cp_async_commit();
     tc::cp_async_wait<1>();  // tile j (and at j = 0 Q and dO) has landed
@@ -297,11 +218,11 @@ flash_bwd_dq_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       for (int np = 0; np < 4; ++np) {
         uint32_t bk[4], bv[4];
         tc::ldsm_x4(tc::addr_b<CPR>(stK, np * 16, 2 * kk, lane), bk);
-        mma_rn(s[2 * np], aq, bk[0], bk[1]);
-        mma_rn(s[2 * np + 1], aq, bk[2], bk[3]);
+        tc::mma_rn(s[2 * np], aq, bk[0], bk[1]);
+        tc::mma_rn(s[2 * np + 1], aq, bk[2], bk[3]);
         tc::ldsm_x4(tc::addr_b<CPR>(stV, np * 16, 2 * kk, lane), bv);
-        mma_rn(dp[2 * np], ado, bv[0], bv[1]);
-        mma_rn(dp[2 * np + 1], ado, bv[2], bv[3]);
+        tc::mma_rn(dp[2 * np], ado, bv[0], bv[1]);
+        tc::mma_rn(dp[2 * np + 1], ado, bv[2], bv[3]);
       }
     }
 
@@ -354,7 +275,7 @@ flash_bwd_dq_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   tc::cp_async_wait<0>();
 
   // out through this warp's own rows of the Q tile (no other warp reads them)
-  store_rows<D, FULL>(acc, sQ, warp * 16,
+  tc::store_rows<D, FULL>(acc, sQ, warp * 16,
                       dq + (long long)b * dq_sb + (long long)h * dq_sh, dq_ss,
                       q0, Sq, hd, lane);
 }
@@ -393,8 +314,8 @@ flash_bwd_dkv_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
   const bf16* kb = k + (long long)b * k_sb + (long long)hk * k_sh;
   const bf16* vb = v + (long long)b * v_sb + (long long)hk * v_sh;
-  load_tile<D, FULL>(sK, kb, k_ss, k0, Sk, hd);
-  load_tile<D, FULL>(sV, vb, v_ss, k0, Sk, hd);
+  tc::load_tile<kB, kNT, D, FULL>(sK, tc::Strided{kb, k_ss}, k0, Sk, hd);
+  tc::load_tile<kB, kNT, D, FULL>(sV, tc::Strided{vb, v_ss}, k0, Sk, hd);
 
   // the first query tile whose last row reaches this key tile's first
   // column: q_offset + 64 qt + 63 >= k0; the walk covers the query tiles
@@ -409,12 +330,15 @@ flash_bwd_dkv_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   auto issue = [&](int it, int st) {
     const int h = hk * grp + it / nqt;
     const int q0 = (qt0 + it % nqt) * kB;
-    load_tile<D, FULL>(sQ + st * TB,
-                       q + (long long)b * q_sb + (long long)h * q_sh, q_ss, q0,
-                       Sq, hd);
-    load_tile<D, FULL>(sdO + st * TB,
-                       dout + (long long)b * do_sb + (long long)h * do_sh,
-                       do_ss, q0, Sq, hd);
+    tc::load_tile<kB, kNT, D, FULL>(
+        sQ + st * TB,
+        tc::Strided{q + (long long)b * q_sb + (long long)h * q_sh, q_ss}, q0,
+        Sq, hd);
+    tc::load_tile<kB, kNT, D, FULL>(
+        sdO + st * TB,
+        tc::Strided{dout + (long long)b * do_sb + (long long)h * do_sh,
+                    do_ss},
+        q0, Sq, hd);
     const int i = tid & (kB - 1);
     const float* src = tid < kB ? lse : delta;
     float* dst = (tid < kB ? lse_s : del_s) + st * kB + i;
@@ -465,12 +389,12 @@ flash_bwd_dkv_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
         for (int np = 0; np < kQS / 16; ++np) {
           uint32_t bq[4], bdo[4];
           tc::ldsm_x4(tc::addr_b<CPR>(stQ, sub + np * 16, 2 * kk, lane), bq);
-          mma_rn(s[2 * np], ak, bq[0], bq[1]);
-          mma_rn(s[2 * np + 1], ak, bq[2], bq[3]);
+          tc::mma_rn(s[2 * np], ak, bq[0], bq[1]);
+          tc::mma_rn(s[2 * np + 1], ak, bq[2], bq[3]);
           tc::ldsm_x4(tc::addr_b<CPR>(stdO, sub + np * 16, 2 * kk, lane),
                       bdo);
-          mma_rn(dp[2 * np], av, bdo[0], bdo[1]);
-          mma_rn(dp[2 * np + 1], av, bdo[2], bdo[3]);
+          tc::mma_rn(dp[2 * np], av, bdo[0], bdo[1]);
+          tc::mma_rn(dp[2 * np + 1], av, bdo[2], bdo[3]);
         }
       }
 
@@ -482,6 +406,7 @@ flash_bwd_dkv_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
         const float2 l2 = *reinterpret_cast<const float2*>(lse_t + ql);
         const float2 d2 = *reinterpret_cast<const float2*>(del_t + ql);
         float p[4], x[4];
+        uint32_t near = 0;
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           const int qc = ql + (e & 1);
@@ -497,6 +422,20 @@ flash_bwd_dkv_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
             p[e] = expf(sv - l);
           }
           x[e] = p[e] * (dp[nt][e] - dl) * scale;
+          near |= tc::near_tie(p[e]) ? 1u << e : 0u;
+        }
+        // P is rounded to bf16 for dV: where that rounding lies near a
+        // tie, S is summed again in the plain version's order, so that P
+        // rounds as there (a masked P is 0, never near a tie)
+        if (__any_sync(0xffffffffu, near)) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            if (!(near >> e & 1)) continue;
+            const float se = tc::dot_in_order<D>(
+                sK, warp * 16 + g + (e >> 1) * 8, stQ, ql + (e & 1));
+            p[e] = expf(se * scale - ((e & 1) ? l2.y : l2.x));
+            x[e] = p[e] * (dp[nt][e] - ((e & 1) ? d2.y : d2.x)) * scale;
+          }
         }
         ap[nt >> 1][(nt & 1) * 2] = tc::pack_bf16(p[0], p[1]);
         ap[nt >> 1][(nt & 1) * 2 + 1] = tc::pack_bf16(p[2], p[3]);
@@ -535,10 +474,10 @@ flash_bwd_dkv_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   tc::cp_async_wait<0>();
 
   // out through this warp's own rows of the K and V tiles
-  store_rows<D, FULL>(dk_acc, sK, warp * 16,
+  tc::store_rows<D, FULL>(dk_acc, sK, warp * 16,
                       dk + (long long)b * dk_sb + (long long)hk * dk_sh, dk_ss,
                       k0, Sk, hd, lane);
-  store_rows<D, FULL>(dv_acc, sV, warp * 16,
+  tc::store_rows<D, FULL>(dv_acc, sV, warp * 16,
                       dv + (long long)b * dv_sb + (long long)hk * dv_sh, dv_ss,
                       k0, Sk, hd, lane);
 }

@@ -1,6 +1,9 @@
 // Warp-level tensor-core building blocks for sm_90a (inline PTX): bf16
 // mma.sync m16n8k16 with f32 accumulators, ldmatrix fragment loads from an
-// XOR-swizzled shared-memory tile, and cp.async copies into it.
+// XOR-swizzled shared-memory tile, and cp.async copies into it; then the
+// tile loads and stores that the attention kernels share (the forward and
+// the chunk prefill in attention_fwd_tc.cuh, the backward in
+// flash_attention_bwd_tc.cuh).
 //
 // Fragments of mma.m16n8k16.row.col (g = lane / 4, t = lane % 4; each
 // 32-bit register holds two bf16, the lower column in the low half):
@@ -138,6 +141,156 @@ __device__ __forceinline__ uint4 ld_shared_v4(uint32_t addr) {
                : "r"(addr)
                : "memory");
   return v;
+}
+
+// d += a * b: the tensor cores sum the 16 products of the step into a
+// fresh accumulator, which is added to d in f32 on the CUDA cores (round
+// to nearest). The attention kernels sum S (and dP) this way: chained in
+// the tensor cores, whose additions truncate, they drift further from the
+// plain versions' f32 sums, and more bf16 roundings of P (and dS) flip
+// (PERF.md).
+__device__ __forceinline__ void mma_rn(float (&d)[4], const uint32_t (&a)[4],
+                                       uint32_t b0, uint32_t b1) {
+  float t[4] = {0.f, 0.f, 0.f, 0.f};
+  mma_bf16(t, a, b0, b1);
+#pragma unroll
+  for (int e = 0; e < 4; ++e) d[e] += t[e];
+}
+
+// two bf16 values of a 32-bit word (lo: the low half), widened to f32
+__device__ __forceinline__ float bf16_lo(uint32_t w) {
+  return __uint_as_float(w << 16);
+}
+__device__ __forceinline__ float bf16_hi(uint32_t w) {
+  return __uint_as_float(w & 0xffff0000u);
+}
+
+// f32 ulps around a bf16 rounding tie within which a sum in another order
+// may move x to the other side (S summed by mma_rn and by a sequential
+// FMA put exp(S - m) at most 22 ulps apart, 99.9% of them within 15, in a
+// simulation of the tensor cores' truncation over 128 random products)
+constexpr uint32_t kTieMargin = 16;
+
+// does rounding x to bf16 (to nearest even) depend on its last few bits:
+// do its low 16 bits lie within kTieMargin of the midpoint 0x8000?
+__device__ __forceinline__ bool near_tie(float x) {
+  const uint32_t low = __float_as_uint(x) & 0xffffu;
+  return low - (0x8000u - kTieMargin) < 2u * kTieMargin;
+}
+
+// sum over d of a[ra][d] * b[rb][d], rows of two swizzled [rows][D] bf16
+// tiles, as a sequential f32 FMA from d = 0: the order of the plain
+// versions' f32 products (cuBLAS), bit for bit
+template <int D>
+__device__ __forceinline__ float dot_in_order(uint32_t a, int ra, uint32_t b,
+                                              int rb) {
+  constexpr int CPR = D / 8;
+  float s = 0.f;
+#pragma unroll 1
+  for (int c = 0; c < CPR; ++c) {
+    const uint4 x = ld_shared_v4(a + chunk_offset<CPR>(ra, c));
+    const uint4 y = ld_shared_v4(b + chunk_offset<CPR>(rb, c));
+    const uint32_t xw[4] = {x.x, x.y, x.z, x.w}, yw[4] = {y.x, y.y, y.z, y.w};
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      s = fmaf(bf16_lo(xw[j]), bf16_lo(yw[j]), s);
+      s = fmaf(bf16_hi(xw[j]), bf16_hi(yw[j]), s);
+    }
+  }
+  return s;
+}
+
+// the rows of a [S, hd] view with row stride ss (elements): a row source
+// of load_tile
+struct Strided {
+  const __nv_bfloat16* p;
+  long long ss;
+  __device__ __forceinline__ const __nv_bfloat16* row(int r) const {
+    return p + r * ss;
+  }
+};
+
+// rows [r0, r0 + ROWS) of a row source (src.row(r): the address of row r,
+// 16-byte aligned at full width; taken for every row, read only for rows
+// below S) into the swizzled [ROWS][D] tile at dst, by the NT threads of
+// the block: cp.async 16-byte copies; rows at or past S, and columns at or
+// past hd, become zeros. A masked instance (FULL false) copies a chunk
+// that is not whole or not 16-byte aligned element by element. UNROLL: the
+// copies a thread unrolls (all by default; a streamed tile rolls them so
+// that its addresses are not held in registers across the caller's loop).
+template <int ROWS, int NT, int D, bool FULL,
+          int UNROLL = (ROWS * D / 8 + NT - 1) / NT, class Src>
+__device__ __forceinline__ void load_tile(uint32_t dst, const Src& src,
+                                          int r0, int S, int hd) {
+  constexpr int CPR = D / 8;
+  constexpr int N = ROWS * CPR;  // chunks of the tile
+#pragma unroll(UNROLL)
+  for (int i = 0; i < (N + NT - 1) / NT; ++i) {
+    const int idx = threadIdx.x + i * NT;
+    if (N % NT != 0 && idx >= N) break;
+    const int r = idx / CPR;
+    const int c = idx % CPR;
+    const uint32_t d = dst + chunk_offset<CPR>(r, c);
+    const __nv_bfloat16* g = src.row(r0 + r) + c * 8;
+    if (r0 + r >= S) {
+      st_shared_v4(d, make_uint4(0u, 0u, 0u, 0u));
+    } else if constexpr (FULL) {
+      cp_async16(d, g);
+    } else {
+      const int n = hd - c * 8;  // columns of this chunk before hd
+      if (n >= 8 && (reinterpret_cast<uintptr_t>(g) & 15) == 0) {
+        cp_async16(d, g);
+      } else {  // narrower: element by element, zeros at and past hd
+        const unsigned short* e = reinterpret_cast<const unsigned short*>(g);
+        uint32_t w[4];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const uint32_t lo = 2 * j < n ? e[2 * j] : 0u;
+          const uint32_t hi = 2 * j + 1 < n ? e[2 * j + 1] : 0u;
+          w[j] = lo | (hi << 16);
+        }
+        st_shared_v4(d, make_uint4(w[0], w[1], w[2], w[3]));
+      }
+    }
+  }
+}
+
+// one warp: acc (rows r0 + lane / 4 and + 8 of a 16-row slab, D columns
+// as D / 8 C fragments) rounded to bf16 into those rows of the swizzled
+// tile at tile, then the slab's rows below S out to dst (row stride ss),
+// columns below hd, in 16-byte stores where whole and aligned
+template <int D, bool FULL>
+__device__ __forceinline__ void store_rows(float (&acc)[D / 8][4],
+                                           uint32_t tile, int r0,
+                                           __nv_bfloat16* dst, int ss,
+                                           int row0, int S, int hd,
+                                           int lane) {
+  constexpr int CPR = D / 8;
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int nt = 0; nt < D / 8; ++nt) {
+    st_shared_b32(tile + chunk_offset<CPR>(r0 + g, nt) + 4 * t,
+                  pack_bf16(acc[nt][0], acc[nt][1]));
+    st_shared_b32(tile + chunk_offset<CPR>(r0 + g + 8, nt) + 4 * t,
+                  pack_bf16(acc[nt][2], acc[nt][3]));
+  }
+  __syncwarp();
+#pragma unroll
+  for (int i = 0; i < 16 * CPR / 32; ++i) {
+    const int idx = lane + i * 32;
+    const int r = idx / CPR;
+    const int c = idx % CPR;
+    if (row0 + r0 + r >= S) continue;
+    const uint4 v = ld_shared_v4(tile + chunk_offset<CPR>(r0 + r, c));
+    __nv_bfloat16* out = dst + (long long)(row0 + r0 + r) * ss + c * 8;
+    const int n = FULL ? 8 : hd - c * 8;
+    if (n >= 8 && (FULL || (reinterpret_cast<uintptr_t>(out) & 15) == 0)) {
+      *reinterpret_cast<uint4*>(out) = v;
+    } else if (n > 0) {
+      const __nv_bfloat16* e = reinterpret_cast<const __nv_bfloat16*>(&v);
+      for (int j = 0; j < n && j < 8; ++j) out[j] = e[j];
+    }
+  }
 }
 
 }  // namespace tc

@@ -4,6 +4,8 @@ Counterpart of ``paddle_tpu/kernels/flash_attention.py``. Three kernels
 replace the three Pallas kernels there: ``csrc/flash_attention_fwd.cu``
 (``_fwd_kernel``) and the dQ and dK/dV passes of
 ``csrc/flash_attention_bwd.cu`` (``_bwd_dq_kernel``, ``_bwd_dkv_kernel``).
+bf16 runs on the tensor cores (``csrc/attention_fwd_tc.cuh``,
+``csrc/flash_attention_bwd_tc.cuh``), f32 on the CUDA cores.
 One ``torch.autograd.Function`` joins forward and backward, as the JAX
 ``_flash`` ``custom_vjp`` does: it saves ``q, k, v, o, lse`` and its
 backward recomputes P from the LSE.

@@ -11,6 +11,8 @@ replace the two Pallas kernels there:
   plain version is the XLA path :func:`paged_prefill_attention`;
   :func:`ragged_prefill_reference` is a second plain version that keeps
   the kernel's own rounding points, to hold the bf16 kernel tightly.
+  bf16 runs P V on the tensor cores (``csrc/attention_fwd_tc.cuh``), f32
+  the CUDA-core kernel of ``csrc/paged_attention_prefill.cuh``.
 
 Layout contract, as in the JAX package:
 

@@ -362,6 +362,131 @@ def test_prefill_kernel_matches_tiled_reference(C, d, ps, pps, q_offset):
     assert _rms_share(ctl, ref) > 1e-4
 
 
+# ------------------------------ bf16 attention forward on the tensor cores
+
+def _hold_tiled(out, q, kp, vp, pt, q_offset):
+    """bf16 chunk prefill against the plain version with its rounding
+    points, at the limits of test_prefill_kernel_matches_tiled_reference:
+    rms share <= 1e-4, largest error <= 2^-7 of max |ref|."""
+    ref = tpa.ragged_prefill_reference(q, kp, vp, pt, q_offset)
+    assert _rms_share(out, ref) <= 1e-4
+    assert (out.float() - ref.float()).abs().max().item() \
+        <= 2 ** -7 * ref.float().abs().max().item()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("nkv", [8, 2])
+def test_flash_fwd_bf16_repeats_bit_for_bit(nkv):
+    """The bf16 forward uses no atomics: two calls on fused-QKV views (the
+    training layout, S = 1024, 8 heads of 128; and GQA) give the same
+    bits, O and LSE."""
+    _cuda()
+    q, k, v, _ = _fused_qkv_views(2, 1024, 8, nkv, 128, 51)
+    first = tfa.flash_attention_fwd(q, k, v, causal=True)
+    second = tfa.flash_attention_fwd(q, k, v, causal=True)
+    assert torch.equal(first[0], second[0])
+    assert torch.equal(first[1], second[1])
+
+
+@pytest.mark.gpu
+def test_prefill_bf16_repeats_bit_for_bit():
+    """Two calls of the bf16 chunk prefill give the same bits."""
+    dev = _cuda()
+    q, kp, vp, pt = _prefill_inputs(dev, torch.bfloat16, 2, 256, 8, 128, 64,
+                                    16, 52)
+    first = tpa.ragged_prefill_attention(q, kp, vp, pt, 768)
+    second = tpa.ragged_prefill_attention(q, kp, vp, pt, 768)
+    assert torch.equal(first, second)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", [16, 40, 80, 96])
+def test_attention_fwd_bf16_masked_head_dims(d):
+    """bf16 at head dims 16 (its own instance) and 40, 80 and 96 (columns
+    past d zero-filled and never stored): the flash forward causal with
+    GQA on fused-QKV views, and the chunk prefill at a mid-page offset,
+    against their plain versions (the prefill also against the one with
+    its rounding points)."""
+    dev = _cuda()
+    q, k, v, _ = _fused_qkv_views(2, 300, 4, 2, d, 53)
+    n0 = tfa.launches
+    o, lse = tfa.flash_attention_fwd(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    assert tfa.launches == n0 + 1
+    o_ref, lse_ref = tfa.flash_attention_reference(q, k, v, causal=True)
+    torch.testing.assert_close(o.float(), o_ref.float(),
+                               rtol=TOL["bfloat16"], atol=TOL["bfloat16"])
+    torch.testing.assert_close(lse, lse_ref, rtol=1e-4, atol=1e-4)
+    qc, kp, vp, pt = _prefill_inputs(dev, torch.bfloat16, 2, 100, 4, d, 16,
+                                     12, 54)
+    out = tpa.ragged_prefill_attention(qc, kp, vp, pt, 37)
+    ref = tpa.paged_prefill_attention(qc, kp, vp, pt, 37)
+    assert out.shape == ref.shape
+    torch.testing.assert_close(out.float(), ref.float(),
+                               rtol=TOL["bfloat16"], atol=TOL["bfloat16"])
+    _hold_tiled(out, qc, kp, vp, pt, 37)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("S", [65, 129, 1025])
+def test_flash_fwd_bf16_gqa_views_last_tile_one_row(S, causal):
+    """The bf16 forward on the q/k/v views of one fused [B, S, N + 2 Nkv,
+    D] projection under GQA (8 query heads, 2 KV heads), at S = 64 j + 1:
+    the last 64-row query tile (and the last K/V tile) holds one row."""
+    _cuda()
+    q, k, v, _ = _fused_qkv_views(2, S, 8, 2, 128, 55)
+    o, lse = tfa.flash_attention_fwd(q, k, v, causal=causal)
+    o_ref, lse_ref = tfa.flash_attention_reference(q, k, v, causal=causal)
+    torch.testing.assert_close(o.float(), o_ref.float(),
+                               rtol=TOL["bfloat16"], atol=TOL["bfloat16"])
+    torch.testing.assert_close(lse, lse_ref, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("aligned", [False, True])
+@pytest.mark.parametrize("ps", [8, 16, 32, 64, 128])
+def test_prefill_bf16_page_sizes(ps, aligned):
+    """The bf16 chunk prefill through pages of 8 to 128 positions (each
+    16-byte chunk finds its page), at a mid-page or a page-aligned offset;
+    the two sequences share the pages before the offset, and the chunk's
+    last 40 rows are padding (zero rows), whose outputs must be finite.
+    Against ragged_prefill_reference and the XLA version."""
+    dev = _cuda()
+    C = 128
+    off = 4 * ps + (0 if aligned else ps // 2 + 1)
+    pps = (off + C + ps - 1) // ps + 1
+    q, kp, vp, pt = _prefill_inputs(dev, torch.bfloat16, 2, C, 4, 128, ps,
+                                    pps, 56)
+    pt[1, :off // ps] = pt[0, :off // ps]
+    q[:, C - 40:] = 0
+    out = tpa.ragged_prefill_attention(q, kp, vp, pt, off)
+    assert bool(torch.isfinite(out.float()).all())
+    _hold_tiled(out, q, kp, vp, pt, off)
+    ref = tpa.paged_prefill_attention(q, kp, vp, pt, off)
+    torch.testing.assert_close(out.float(), ref.float(),
+                               rtol=TOL["bfloat16"], atol=TOL["bfloat16"])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,nh,C", [(1, 4, 1), (1, 4, 17), (1, 8, 100),
+                                    (2, 8, 256), (4, 8, 256)])
+def test_prefill_bf16_row_groups(B, nh, C):
+    """The bf16 chunk prefill runs a block of 4 warps for each group of 16
+    chunk rows: chunks of 1, 17 and 100 rows (the last group partial), and
+    2 and 4 sequences of 256 (more blocks than SMs), against
+    ragged_prefill_reference."""
+    dev = _cuda()
+    q, kp, vp, pt = _prefill_inputs(dev, torch.bfloat16, B, C, nh, 128, 64,
+                                    10, 57)
+    n0 = tpa.prefill_launches
+    out = tpa.ragged_prefill_attention(q, kp, vp, pt, 300)
+    torch.cuda.synchronize()
+    assert tpa.prefill_launches == n0 + 1
+    assert bool(torch.isfinite(out.float()).all())
+    _hold_tiled(out, q, kp, vp, pt, 300)
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("layout", ["kn", "nk"])

@@ -187,6 +187,29 @@ def test_ctypes_signatures_match_c_entries():
             assert ("*" in p) == (a is _build._P), (name, p)
 
 
+@pytest.mark.parametrize("tool,source", [
+    ("torch_flash_bwd_stats", "flash_attention_bwd_tc.cuh"),
+    ("torch_attn_fwd_stats", "attention_fwd_tc.cuh")])
+def test_stats_tool_variants_apply_to_the_sources(tool, source):
+    """Every source variant of the card's statistics tools replaces text
+    that the kernel source holds, so each tool builds the variant it
+    names (the tools run only on the card)."""
+    import importlib.util
+    from pathlib import Path
+    path = Path(__file__).resolve().parents[1] / "tools" / f"{tool}.py"
+    spec = importlib.util.spec_from_file_location(tool, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    text = (_build._CSRC / source).read_text()
+    assert mod.VARIANTS
+    for name, subs in mod.VARIANTS.items():
+        variant = text
+        for old, new in subs:
+            assert old in variant, (name, old)
+            variant = variant.replace(old, new)
+        assert variant != text, name
+
+
 # -------------------------------------------------------- flash backward
 
 # bf16: P and dS are rounded to bf16 before their products, in both

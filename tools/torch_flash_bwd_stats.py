@@ -33,11 +33,13 @@ sys.path.insert(0, str(ROOT))
 import chip_smoke as cs  # noqa: E402
 
 # text replacements in flash_attention_bwd_tc.cuh: S and dP chained in the
-# tensor cores' accumulators; 32 query columns a dK/dV sub-step
+# tensor cores' accumulators; 32 query columns a dK/dV sub-step; P for dV
+# rounded from S as mma_rn sums it, without the in-order sum near a tie
 VARIANTS = {
-    "chained_s_dp": [("mma_rn(s[", "tc::mma_bf16(s["),
-                     ("mma_rn(dp[", "tc::mma_bf16(dp[")],
+    "chained_s_dp": [("tc::mma_rn(s[", "tc::mma_bf16(s["),
+                     ("tc::mma_rn(dp[", "tc::mma_bf16(dp[")],
     "kqs32": [("constexpr int kQS = 16;", "constexpr int kQS = 32;")],
+    "no_tie_guard": [("if (__any_sync(0xffffffffu, near)) {", "if (false) {")],
 }
 B, S, N, D = cs.TRAIN_B, cs.TRAIN_S, 8, 128
 
