@@ -16,7 +16,10 @@ Twelve phases, one result per line:
    tensor, two calls there bit-equal, timed at the serving and the
    training shape beside SDPA, and its errors over 6 other seeds logged;
    the paged decode at the serving shapes (GPT-345M's and ERNIE-MoE
-   base's, 12 heads of 64); the flash backward (dQ and dK/dV kernels)
+   base's, 12 heads of 64), also against its plain version in the kernel's
+   own form (``paged_decode_split_reference``), two calls bit-equal, its
+   instances' registers and spills read from the build log, and timed at
+   both shapes with the stream held beside SDPA; the flash backward (dQ and dK/dV kernels)
    over the forward's cases, and through the autograd Function against
    autograd of the plain forward; then the backward at the training
    shape, on the fused views, with a control that shows the bf16
@@ -32,10 +35,12 @@ Twelve phases, one result per line:
    against a plain version with the kernel's rounding points and a
    control without the rounding of P, two calls bit-equal and 6 other
    seeds logged; the five GPT-345M
-   weight shapes at M = 1, 8 and 256 and odd sizes), each timed at its
-   serving shape (with the stream held, so the host's issue does not
-   enter) against its bound and a PyTorch yardstick, the int8 block
-   shapes also with K not split across blocks; ``moe_dispatch`` — the
+   weight shapes at M = 1, 8, 9 and 256 and odd sizes, two calls
+   bit-equal, the instances' registers and spills from the build log),
+   each timed at its serving shape (with the stream held, so the host's
+   issue does not enter) against its bound and a PyTorch yardstick, the
+   int8 shapes at M = 1, 2, 4 and 8 and the "kn" ones at 256 beside cuBLAS
+   on the dequantized weight; ``moe_dispatch`` — the
    MoE dispatch and combine kernels against their plain versions in f32
    and bf16 at ERNIE-MoE base width (M = 768, E = 8, top-2): the decode
    and prefill shapes, a ragged S = 130, a capacity-dropping S = 4096,
@@ -62,8 +67,9 @@ Twelve phases, one result per line:
    tokens under ``torch.profiler``; then f32, where every token with the
    cache equals the token without it;
 6. ``serving_int8`` — the eight ragged requests of ``serving`` with
-   ``quantize="int8"``: a bf16 counted run beside the float engine's and
-   16 decode steps under ``torch.profiler``, then f32, where every token
+   ``quantize="int8"``: a bf16 counted run beside the float engine's, the
+   host/device split of a decode step and 16 decode steps under
+   ``torch.profiler``, then f32, where every token
    equals the argmax of the dense model on the dequantized weights;
 7. ``serving_moe`` — the ERNIE-MoE serving path at the full width of
    ``ernie_moe_base_config`` (12 layers, hidden 768, 12 heads of 64, 8
@@ -139,6 +145,7 @@ MOE_COMBINE_EINSUM_TOL = (2 ** -6, 5e-3)
 INT8_SHAPES = (("wqkv", 1024, 3072, "kn"), ("wo", 1024, 1024, "kn"),
                ("w1", 1024, 4096, "kn"), ("w2", 4096, 1024, "kn"),
                ("logits", 1024, 50304, "nk"))
+INT8_DECODE_M = (1, 2, 4, 8)     # the decode buckets' rows
 
 # kernel vs plain version: the largest |out - ref|, held to about twice
 # the error each kernel showed on the card (bf16 shows one or two bf16
@@ -331,11 +338,16 @@ def _flash_case(torch, fa, dt, q, k, v, off, label):
 
 def _kernel_names(torch, fn, calls=3):
     """The names of the kernels ``fn`` launches, by the profiler over a
-    few calls."""
+    few calls; profiled once more if the profiler recorded no device
+    activity at all (it then measured nothing)."""
     def run():
         for _ in range(calls):
             fn()
-    return sorted(_device_time(torch, run)[1])
+    names = _device_time(torch, run)[1]
+    if not names:
+        _log("  the profiler recorded no device activity; profiling again")
+        names = _device_time(torch, run)[1]
+    return sorted(names)
 
 
 def _check_routes(torch, what, fns, tc_name, cuda_core_name):
@@ -347,12 +359,13 @@ def _check_routes(torch, what, fns, tc_name, cuda_core_name):
         want = tc_name if dt == "bfloat16" else cuda_core_name
         _log(f"{what} {dt} launches: {names}")
         if not names or any(want not in n for n in names):
-            raise AssertionError(f"{what} {dt} did not run {want}: {names}")
+            raise AssertionError(f"{what} {dt} did not run {want}: {names} "
+                                 f"(all kernels seen: {_kernel_names(torch, fn)})")
 
 
 def phase_flash(torch, res):
     from paddle_tpu_torch.kernels import flash_attention as fa
-    _tc_ptxas(res, "flash_fwd", FLASH_FWD_TC, 8)
+    _ptxas_check(res, "flash_fwd", (FLASH_FWD_TC,), 8, gate=_d128)
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
     randn = lambda *shape: torch.randn(*shape, device=dev,  # noqa: E731
@@ -543,37 +556,54 @@ FLASH_BWD_TC = (r"flash_bwd_(?P<pass>dq|dkv)_tc_kernelILi(?P<D>\d+)ELb"
                 r"(?P<full>[01])E")
 
 
-def _tc_ptxas(res, key, pattern, count):
-    """Registers and spills of the instances of one tensor-core kernel,
-    from the build log; the D = 128 ones must not spill."""
+# the paged decode and int8 kernels' instances in the build log (mangled
+# names): dtype (f: float), head dim D, full width or masked, query heads
+# G a block; the int8 layout (0: "kn", 1: "nk") and n8 tiles of x
+PAGED_DECODE = (r"paged_decode_split_kernelI(?P<T>f|13__nv_bfloat16)Li"
+                r"(?P<D>\d+)ELb(?P<full>[01])ELi(?P<G>\d+)E")
+INT8_MM = (r"int8_mm_kernelI(?P<T>f|13__nv_bfloat16)Li(?P<layout>[01])ELi"
+           r"(?P<MT>[12])E")
+
+
+def _ptxas_check(res, key, patterns, count, gate=lambda label: True):
+    """Registers and spills of every instance of a kernel (the mangled
+    names ``patterns`` match), from the build log; fails if an instance is
+    missing or one that ``gate`` names (by its label) spills."""
     from paddle_tpu_torch.kernels import _build
     rows = {}
     for name, (regs, st, ld) in _ptxas_kernels(
             _build.build_log["ptxas"]).items():
-        m = re.search(pattern, name)
-        if m:
-            g = m.groupdict()
-            label = " ".join(x for x in (
-                g.get("pass"), f"D={g['D']}",
-                "full" if g["full"] == "1" else "masked") if x)
-            rows[label] = dict(registers=regs, spill_store_bytes=st,
-                               spill_load_bytes=ld)
-    _log(f"bf16 tensor-core {key} instances (ptxas): " + "; ".join(
-        f"{k}: {v['registers']} regs, spills {v['spill_store_bytes']}/"
-        f"{v['spill_load_bytes']} B" for k, v in sorted(rows.items())))
+        for pat in patterns:
+            m = re.search(pat, name)
+            if m:
+                kind = m.group(0).split("_kernelI")[0] + "_kernel"
+                label = kind + " " + " ".join(
+                    f"{k}={'f32' if v == 'f' else 'bf16' if k == 'T' else v}"
+                    for k, v in m.groupdict().items())
+                rows[label] = dict(registers=regs, spill_store_bytes=st,
+                                   spill_load_bytes=ld)
     res[f"{key}_ptxas"] = rows
+    regs = [v["registers"] for v in rows.values()]
+    spilled = sorted(k for k, v in rows.items()
+                     if v["spill_store_bytes"] or v["spill_load_bytes"])
+    _log(f"{key} instances (ptxas): {len(rows)} of {count}, registers "
+         f"{min(regs, default=0)}-{max(regs, default=0)}; " + "; ".join(
+             f"{k}: {v['registers']}" for k, v in sorted(rows.items())
+             if v["registers"] == max(regs)) + f"; spilled: {spilled}")
     if len(rows) != count:
-        raise AssertionError(f"found {len(rows)} of the {count} bf16 {key} "
+        raise AssertionError(f"found {len(rows)} of the {count} {key} "
                              f"instances in the build log")
-    spilled = [k for k, v in rows.items() if "D=128" in k and (
-        v["spill_store_bytes"] or v["spill_load_bytes"])]
-    if spilled:
-        raise AssertionError(f"D = 128 {key} instances spill: {spilled}")
+    if any(gate(k) for k in spilled):
+        raise AssertionError(f"{key} instances spill: {spilled}")
+
+
+def _d128(label):
+    return "D=128" in label
 
 
 def phase_flash_bwd(torch, res):
     from paddle_tpu_torch.kernels import flash_attention as fa
-    _tc_ptxas(res, "flash_bwd", FLASH_BWD_TC, 16)
+    _ptxas_check(res, "flash_bwd", (FLASH_BWD_TC,), 16, gate=_d128)
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(4)
     randn = lambda *shape: torch.randn(*shape, device=dev,  # noqa: E731
@@ -749,10 +779,12 @@ def _page_table(torch, gen, B, pps):
 
 
 def _paged_case(torch, pa, gen, dt, pt, nh, nkv, d, ps, lens, n_layers=1):
-    """The paged decode kernel against its plain version on the first of
-    ``n_layers`` layers of random pages, through the page table ``pt``, at
-    ragged ``lens`` (0: an idle slot, whose row must stay finite). Returns
-    (q, kp, vp, sl, err)."""
+    """The paged decode kernel against its plain version and against the
+    plain version in the kernel's own form (``paged_decode_split_reference``
+    at the wrapper's split) on the first of ``n_layers`` layers of random
+    pages, through the page table ``pt``, at ragged ``lens`` (0: an idle
+    slot, whose row must stay finite); two calls must give the same bits.
+    Returns (q, kp, vp, sl, err)."""
     dev = torch.device("cuda")
     dtype = getattr(torch, dt)
     B, pps = pt.shape
@@ -765,22 +797,84 @@ def _paged_case(torch, pa, gen, dt, pt, nh, nkv, d, ps, lens, n_layers=1):
                      generator=gen).to(dtype)
     q = torch.randn(B, nh, d, device=dev, generator=gen).to(dtype)
     out = pa.paged_attention_decode(q, kp[0], vp[0], pt, sl)
+    again = pa.paged_attention_decode(q, kp[0], vp[0], pt, sl)
     torch.cuda.synchronize()
+    same = torch.equal(out, again)
     ref = pa.paged_attention_reference(q, kp[0], vp[0], pt, sl)
+    n_split = pa._decode_split(B, nkv, nh // nkv, pps, pa._sm_count(dev))
+    split_ref = pa.paged_decode_split_reference(q, kp[0], vp[0], pt, sl,
+                                                n_split=n_split)
     err, bias, ok = _check("paged", out[live], ref[live], dt)
+    err_s, bias_s, ok_s = _check("paged", out[live], split_ref[live], dt)
     finite = bool(torch.isfinite(out.float()).all())
-    ok = ok and finite
+    ok = ok and ok_s and finite and same
     _log(f"paged_attention_decode {dt} B={B} nh={nh} nkv={nkv} d={d} "
-         f"page={ps} pages/seq={pps} lens={list(lens)}: max_abs_err={err:.3e} "
-         f"bias={bias:.2e} ({_tol_text('paged', dt)}) idle row "
-         f"finite={finite} {'ok' if ok else 'FAIL'}")
+         f"page={ps} pages/seq={pps} lens={list(lens)} n_split={n_split}: "
+         f"max_abs_err={err:.3e} bias={bias:.2e}, against the split form "
+         f"{err_s:.3e} bias={bias_s:.2e} ({_tol_text('paged', dt)}) idle "
+         f"row finite={finite} two calls bit-equal={same} "
+         f"{'ok' if ok else 'FAIL'}")
     if not ok:
         raise AssertionError(f"paged kernel disagrees at {dt}, d={d}")
     return q, kp, vp, sl, err
 
 
+def _time_paged(torch, pa, q, kp, vp, pt, sl, label):
+    """The bf16 kernel, its plain version and the SDPA yardstick over the
+    layers of ``kp``/``vp`` in turn (one layer's pages per call, as decode
+    does), each with the stream held; the bound from this run's live
+    tokens."""
+    dev = q.device
+    B, nh, d = q.shape
+    n_layers, _, ps, nkv, _ = kp.shape
+    pps = pt.shape[1]
+
+    def cycling(fn, step=[0]):
+        def run():
+            i = step[0] % n_layers
+            step[0] += 1
+            return fn(q, kp[i], vp[i], pt, sl)
+        return run
+    ms = _time_held_ms(torch, cycling(pa.paged_attention_decode), 200)
+    plain_ms = _time_held_ms(torch, cycling(pa.paged_attention_reference), 20)
+    # the yardstick: SDPA with a length mask over each layer's K/V gathered
+    # dense (the gather not timed); the idle slot attends its first
+    # position so its row stays finite
+    idx = pt.long()
+    dense = [tuple(t[i][idx].reshape(B, pps * ps, nkv, d).transpose(1, 2)
+                   .contiguous() for t in (kp, vp)) for i in range(n_layers)]
+    qs = q[:, :, None, :]                                  # [B, nh, 1, d]
+    keep = (torch.arange(pps * ps, device=dev)[None, :]
+            < sl.clamp_min(1).long()[:, None])[:, None, None, :]
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+
+    def lib(step=[0]):
+        i = step[0] % n_layers
+        step[0] += 1
+        return sdpa(qs, dense[i][0], dense[i][1], attn_mask=keep,
+                    enable_gqa=nkv != nh)
+    lib_ms = _time_held_ms(torch, lib, 200)
+    del dense
+    tokens = int(sl.clamp(0, pps * ps).sum().item())
+    nbytes = (2 * tokens * nkv * d * kp.element_size()       # K and V
+              + 2 * q.numel() * q.element_size()             # q and out
+              + pt.numel() * 4 + sl.numel() * 4)
+    flops = 4 * nh * d * tokens
+    bound_ms, by = _bound(flops, nbytes, "bfloat16")
+    n_split = pa._decode_split(B, nkv, nh // nkv, pps, pa._sm_count(dev))
+    _log(f"paged_attention_decode bf16 {label} ({tokens} live tokens, "
+         f"n_split {n_split}): kernel {ms:.4f} ms ({nbytes / ms / 1e6:.1f} "
+         f"GB/s), plain {plain_ms:.4f} ms, sdpa (dense K/V, length mask) "
+         f"{lib_ms:.4f} ms, bound {bound_ms:.5f} ms ({by}: "
+         f"{nbytes / 1e6:.3f} MB)")
+    return dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                bound_ms=bound_ms, bound_by=by, n_split=n_split,
+                tokens=tokens, mbytes=nbytes / 1e6)
+
+
 def phase_paged(torch, res):
     from paddle_tpu_torch.kernels import paged_attention as pa
+    _ptxas_check(res, "paged_decode", (PAGED_DECODE,), 64)
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(1)
     B, nh, nkv, d, ps, pps = 8, 8, 8, 128, 64, 16
@@ -790,60 +884,29 @@ def phase_paged(torch, res):
     for dt in ("bfloat16", "float32"):
         q, kp, vp, sl, err = _paged_case(torch, pa, gen, dt, pt, nh, nkv, d,
                                          ps, lens, n_layers)
-        if dt != "bfloat16":
-            continue
-        def cycling(fn, step=[0]):
-            def run():          # one layer's pages per call, as decode does
-                i = step[0] % n_layers
-                step[0] += 1
-                return fn(q, kp[i], vp[i], pt, sl)
-            return run
-        ms = _time_ms(torch, cycling(pa.paged_attention_decode), 200)
-        plain_ms = _time_ms(torch, cycling(pa.paged_attention_reference), 20)
-        # the yardstick: SDPA with a length mask over each layer's K/V
-        # gathered dense (the gather not timed); the idle slot attends its
-        # first position so its row stays finite
-        idx = pt.long()
-        dense = [tuple(t[i][idx].reshape(B, pps * ps, nkv, d).transpose(1, 2)
-                       .contiguous() for t in (kp, vp))
-                 for i in range(n_layers)]
-        qs = q[:, :, None, :]                              # [B, nh, 1, d]
-        keep = (torch.arange(pps * ps, device=dev)[None, :]
-                < sl.clamp_min(1).long()[:, None])[:, None, None, :]
-        sdpa = torch.nn.functional.scaled_dot_product_attention
-
-        def lib(step=[0]):
-            i = step[0] % n_layers
-            step[0] += 1
-            return sdpa(qs, dense[i][0], dense[i][1], attn_mask=keep,
-                        enable_gqa=nkv != nh)
-        lib_ms = _time_ms(torch, lib, 200)
-        del dense
-        tokens = sum(lens)
-        nbytes = (2 * tokens * nkv * d * kp.element_size()       # K and V
-                  + 2 * q.numel() * q.element_size()             # q and out
-                  + pt.numel() * 4 + sl.numel() * 4)
-        flops = 4 * nh * d * tokens
-        bound_ms, by = _bound(flops, nbytes, "bfloat16")
-        _log(f"paged_attention_decode bf16 bucket 8 ({tokens} live tokens): "
-             f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa (dense K/V, "
-             f"length mask) {lib_ms:.4f} ms, bound {bound_ms:.5f} ms ({by}: "
-             f"{nbytes / 1e6:.3f} MB)")
-        res["paged"] = dict(
-            name="paged_attention_decode", route="cuda",
-            source="paddle_tpu_torch/csrc/paged_attention_decode.cu",
-            replaces="paddle_tpu/kernels/paged_attention.py:80",
-            launches=None, max_abs_err=err, ms=ms, plain_ms=plain_ms,
-            bound_ms=bound_ms, bound_by=by, library_ms=lib_ms)
+        if dt == "bfloat16":
+            t = _time_paged(torch, pa, q, kp, vp, pt, sl, "bucket 8")
+            res["paged"] = dict(
+                name="paged_attention_decode", route="cuda",
+                source="paddle_tpu_torch/csrc/paged_attention_decode.cuh",
+                replaces="paddle_tpu/kernels/paged_attention.py:80",
+                launches=None, max_abs_err=err, **t)
         del kp, vp
-    # the MoE serving path's shape (another instance of the kernel): ERNIE-MoE
-    # base, 12 heads of 64, 8 pages of 64 (512 positions), the MoE cell's
-    # lengths after its 64 new tokens, one idle slot
+    # the MoE serving path's shape (other instances of the kernel):
+    # ERNIE-MoE base, 12 heads of 64, 8 pages of 64 (512 positions), the MoE
+    # cell's lengths after its 64 new tokens, one idle slot; 8 layers cycled
+    # while timing (101 MB)
     moe_lens = [n + MAX_NEW for n in MOE_PROMPT_LENS[:7]] + [0]
     pt = _page_table(torch, gen, 8, 512 // 64)
-    res["paged_moe_shape_err"] = {
-        dt: _paged_case(torch, pa, gen, dt, pt, 12, 12, 64, 64, moe_lens)[-1]
-        for dt in ("bfloat16", "float32")}
+    res["paged_moe_shape_err"] = {}
+    for dt in ("bfloat16", "float32"):
+        q, kp, vp, sl, err = _paged_case(torch, pa, gen, dt, pt, 12, 12, 64,
+                                         64, moe_lens, n_layers)
+        res["paged_moe_shape_err"][dt] = err
+        if dt == "bfloat16":
+            res["paged"]["moe_shape"] = _time_paged(
+                torch, pa, q, kp, vp, pt, sl, "MoE shape")
+        del kp, vp
 
 
 def _prefill_case(torch, gen, dt, B, C, nh, d, ps, pps, n_shared=0,
@@ -913,7 +976,7 @@ def _prefill_errors(torch, pa, dt, q, kp, vp, pt, off):
 
 def phase_paged_prefill(torch, res):
     from paddle_tpu_torch.kernels import paged_attention as pa
-    _tc_ptxas(res, "paged_prefill", PREFILL_TC, 8)
+    _ptxas_check(res, "paged_prefill", (PREFILL_TC,), 8, gate=_d128)
     gen = torch.Generator(device="cuda").manual_seed(5)
     # (B, C, nh, d, ps, pps, q_offset, n_shared, pad_rows)
     cases = [(1, 256, 8, 128, 64, 16, 0, 0, 0),       # the first chunk
@@ -1057,9 +1120,10 @@ def _int8_weight(torch, gen, K, N, layout, offset=0):
 
 def phase_int8(torch, res):
     from paddle_tpu_torch.kernels import int8_matmul as im
+    _ptxas_check(res, "int8", (INT8_MM,), 6)
     gen = torch.Generator(device="cuda").manual_seed(6)
     cases = [(name, M, K, N, layout, 0) for name, K, N, layout in INT8_SHAPES
-             for M in (1, 8, 256)]
+             for M in (1, 8, 9, 256)]
     cases += [("odd_kn", 3, 100, 77, "kn", 0), ("odd_nk", 5, 1000, 50, "nk", 0),
               ("ragged_n", 1, 1024, 3000, "kn", 0),
               ("unaligned_kn", 8, 1024, 1024, "kn", 3),
@@ -1071,29 +1135,31 @@ def phase_int8(torch, res):
             w, s = _int8_weight(torch, gen, K, N, layout, offset)
             x = torch.randn(M, K, device="cuda", generator=gen).to(dtype)
             out = im.int8_matmul(x, w, s, layout=layout)
+            again = im.int8_matmul(x, w, s, layout=layout)
             torch.cuda.synchronize()
+            same = torch.equal(out, again)
             ref = im.int8_matmul_reference(x, w, s, layout)
             top = max(1.0, ref.float().abs().max().item())
             err, bias, ok = _check("int8", out, ref, dt, scale=top)
+            ok = ok and same
             _log(f"int8_matmul {dt} {name} M={M} K={K} N={N} layout={layout}"
                  f"{' unaligned' if offset else ''}: max_abs_err={err:.3e} "
-                 f"(tol {TOL['int8', dt]:g} x {top:.3g}) bias={bias:.2e} "
-                 f"{'ok' if ok else 'FAIL'}")
+                 f"(tol {TOL['int8', dt]:g} x {top:.3g}) bias={bias:.2e} two "
+                 f"calls bit-equal={same} {'ok' if ok else 'FAIL'}")
             if not ok:
                 raise AssertionError(f"int8 kernel disagrees: {dt} {name} M={M}")
             worst[dt] = max(worst.get(dt, 0.0), err)
-    # each decode shape at M = 8, bf16, over enough weight copies to stream
-    # from device memory (> 150 MB), against the plain version and a cuBLAS
-    # bf16 matmul on a weight dequantized ahead of time (twice the bytes,
-    # no scale)
-    M = 8
+    # each shape at M = 1, 2, 4, 8 (decode) and the "kn" shapes at M = 256
+    # (the int8 chunked prefill), bf16, over enough weight copies to stream
+    # from device memory (> 150 MB), each beside a cuBLAS bf16 matmul on a
+    # weight dequantized ahead of time (twice the bytes, no scale), all with
+    # the stream held; the plain version at M = 8
     rows = {}
     for name, K, N, layout in INT8_SHAPES:
         n_copy = max(2, math.ceil(150e6 / (K * N)))
         ws = [_int8_weight(torch, gen, K, N, layout) for _ in range(n_copy)]
         dq = [(w.to(torch.bfloat16) if layout == "kn"
                else w.t().to(torch.bfloat16).contiguous()) for w, _ in ws]
-        x = torch.randn(M, K, device="cuda", generator=gen).to(torch.bfloat16)
 
         def cyc(fn, step=[0]):
             def run():
@@ -1101,41 +1167,30 @@ def phase_int8(torch, res):
                 step[0] += 1
                 return fn(i)
             return run
-        ms = _time_held_ms(torch, cyc(lambda i: im.int8_matmul(
-            x, ws[i][0], ws[i][1], layout=layout)), 100)
-        plain_ms = _time_held_ms(torch, cyc(lambda i: im.int8_matmul_reference(
-            x, ws[i][0], ws[i][1], layout)), 20)
-        lib_ms = _time_held_ms(torch, cyc(lambda i: torch.matmul(x, dq[i])),
-                               100)
-        nbytes = K * N + 4 * N + 2 * M * K + 2 * M * N
-        bound_ms, by = _bound(2 * M * K * N, nbytes, "bfloat16")
-        rows[name] = dict(M=M, K=K, N=N, layout=layout, ms=ms,
-                          plain_ms=plain_ms, library_ms=lib_ms,
-                          bound_ms=bound_ms, bound_by=by,
-                          ksplit=im._ksplit(M, N, K, layout))
-        if layout == "kn":
-            # the same kernel with K not split across blocks: one block
-            # per 128-column tile walks the whole of K
-            w, s = ws[0]
-            one = im._launch(x, w, s, "kn", M, N, K, ksplit=1)
-            ref = im.int8_matmul_reference(x, w, s)
-            err1, _, ok1 = _check("int8", one, ref, "bfloat16", max(
-                1.0, ref.float().abs().max().item()))
-            if not ok1:
-                raise AssertionError(f"int8 kernel unsplit disagrees: {name}")
-            rows[name]["unsplit_ms"] = _time_held_ms(torch, cyc(
-                lambda i: im._launch(x, ws[i][0], ws[i][1], "kn", M, N, K,
-                                     ksplit=1)), 100)
-            _log(f"int8_matmul bf16 {name} M={M}: split K in "
-                 f"{rows[name]['ksplit']} {ms:.4f} ms, unsplit "
-                 f"{rows[name]['unsplit_ms']:.4f} ms (max_abs_err {err1:.3e})")
-        _log(f"int8_matmul bf16 {name} M={M} K={K} N={N} ({layout}): kernel "
-             f"{ms:.4f} ms ({nbytes / ms / 1e6:.1f} GB/s), plain "
-             f"{plain_ms:.4f} ms, cuBLAS bf16 on the dequantized weight "
-             f"{lib_ms:.4f} ms, bound {bound_ms:.5f} ms ({by}: "
-             f"{nbytes / 1e6:.3f} MB)")
+        rows[name] = {}
+        for M in INT8_DECODE_M + ((256,) if layout == "kn" else ()):
+            x = torch.randn(M, K, device="cuda", generator=gen).to(
+                torch.bfloat16)
+            ms = _time_held_ms(torch, cyc(lambda i: im.int8_matmul(
+                x, ws[i][0], ws[i][1], layout=layout)), 100)
+            lib_ms = _time_held_ms(
+                torch, cyc(lambda i: torch.matmul(x, dq[i])), 100)
+            nbytes = K * N + 4 * N + 2 * M * K + 2 * M * N
+            bound_ms, by = _bound(2 * M * K * N, nbytes, "bfloat16")
+            row = dict(M=M, K=K, N=N, layout=layout, ms=ms, library_ms=lib_ms,
+                       bound_ms=bound_ms, bound_by=by)
+            if M == 8:
+                row["plain_ms"] = _time_held_ms(
+                    torch, cyc(lambda i: im.int8_matmul_reference(
+                        x, ws[i][0], ws[i][1], layout)), 20)
+            rows[name][M] = row
+            _log(f"int8_matmul bf16 {name} M={M} K={K} N={N} ({layout}): "
+                 f"kernel {ms:.4f} ms ({nbytes / ms / 1e6:.1f} GB/s), cuBLAS "
+                 f"bf16 on the dequantized weight {lib_ms:.4f} ms"
+                 + (f", plain {row['plain_ms']:.4f} ms" if M == 8 else "")
+                 + f", bound {bound_ms:.5f} ms ({by}: {nbytes / 1e6:.3f} MB)")
         del ws, dq
-    total = {k: sum(r[k] for r in rows.values())
+    total = {k: sum(r[8][k] for r in rows.values())
              for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
     _log(f"int8_matmul bf16 M=8, the five shapes of a decode layer and its "
          f"logits: kernel {total['ms']:.4f} ms, plain {total['plain_ms']:.4f}"
@@ -1574,7 +1629,7 @@ def _kernel_group(name):
         return "flash_attention_bwd_dq"
     if "flash_bwd_dkv_" in name:
         return "flash_attention_bwd_dkv"
-    if "paged_decode_kernel" in name:
+    if "paged_decode_" in name:
         return "paged_attention_decode"
     if "paged_prefill_" in name:      # the f32 kernel and the bf16 _tc one
         return "ragged_prefill_attention"
@@ -1927,6 +1982,7 @@ def phase_serving_int8(torch, np, res):
          f"{e2e['per_token_p50_ms']:.2f} vs "
          f"{float_e2e.get('per_token_p50_ms', float('nan')):.2f} ms, weights "
          f"{e2e['weight_bytes']} vs {float_e2e.get('weight_bytes')} bytes")
+    split = _decode_split(torch, np, eng, cfg)
     _log("serving_int8 bf16, the decode window of phase serving's profile:")
     prof = _profile_engine(torch, np, eng, cfg, prefill=False)
     del eng
@@ -1942,7 +1998,7 @@ def phase_serving_int8(torch, np, res):
     _log(f"serving_int8 f32: {checked} generated tokens equal the argmax of "
          f"the dense model on the dequantized weights (near ties, gap < "
          f"1e-3: {near})")
-    res["serving_int8"] = dict(bf16=e2e, profile=prof,
+    res["serving_int8"] = dict(bf16=e2e, profile=prof, decode_split=split,
                                f32=dict(tokens_checked=checked,
                                         near_ties=near))
 

@@ -58,14 +58,14 @@ _SIGNATURES = {
                                     _I, _I, _F, _P],         # causal q_offset scale stream
     "ptt_paged_attention_decode": [_P, _P, _P, _P, _P, _P,   # q kp vp pt sl out
                                    _I, _I, _I, _I, _I, _I,   # dtype B nh nkv D ps
-                                   _I, _I, _I,               # pages_per_seq q_sb q_sh
+                                   _I, _I, _I, _I,           # pages_per_seq nsplit q_sb q_sh
                                    _F, _P],                  # scale stream
     "ptt_paged_attention_prefill": [_P, _P, _P, _P, _P,      # q kp vp pt out
                                     _I, _I, _I, _I, _I, _I, _I,  # dtype B C nh D ps pps
                                     _I, _I, _I, _I,          # q strides b s h, q_offset
                                     _F, _P],                 # scale stream
-    "ptt_int8_matmul": [_P, _P, _P, _P, _P, _P,              # x w scale out ws counters
-                        _I, _I, _I, _I, _I, _I, _I, _I,      # dtype layout M N K x_stride ksplit vec
+    "ptt_int8_matmul": [_P, _P, _P, _P,                      # x w scale out
+                        _I, _I, _I, _I, _I, _I, _I, _I,      # dtype layout M N K x_stride vec xvec
                         _P],                                 # stream
     "ptt_moe_dispatch": [_P, _P, _P, _P, _P, _P, _P, _P,     # x gw gb out comb val me ce
                          _P, _L,                             # work, its words

@@ -30,20 +30,9 @@ __all__ = ["int8_matmul", "int8_matmul_reference"]
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _LAYOUTS = {"kn": 0, "nk": 1}
-# the kernel's tiling (csrc/int8_matmul.cu): 8 rows of x and 128 columns
-# per "kn" block; K is split across blocks only while the grid of tiles is
-# smaller than the card, in chunks of at least 256 and at most 4096 rows.
-# At M = 8 on an H100 the split runs the GPT-345M block shapes in 15-16 us
-# where one block per tile over the whole of K takes 28-95 us
-# (chip_smoke.py, phase int8).
-_MT, _BN, _MIN_CHUNK, _MAX_CHUNK, _SMS = 8, 128, 256, 4096, 132
 
 # kernel launches since the counter was last set to 0
 launches = 0
-# (device, stream) -> int32 tile tickets of the "kn" split. The kernel
-# leaves them 0, so launches in one stream's order can reuse them; each
-# stream has its own, since launches on two streams may overlap.
-_tickets_by_stream: dict = {}
 
 
 def int8_matmul_reference(x, w, scale, layout="kn"):
@@ -69,25 +58,10 @@ def _shapes(x, w, scale, layout):
     return M, N, K
 
 
-def _ksplit(M, N, K, layout):
-    if layout == "nk":
-        return 1
-    tiles = math.ceil(M / _MT) * math.ceil(N / _BN)
-    split = 1 if tiles >= _SMS else math.ceil(K / _MIN_CHUNK)
-    return max(split, math.ceil(K / _MAX_CHUNK))
-
-
-def _tickets(dev, stream, n):
-    buf = _tickets_by_stream.get((dev, stream))
-    if buf is None or buf.numel() < n:
-        buf = torch.zeros(max(n, 1024), dtype=torch.int32, device=dev)
-        _tickets_by_stream[dev, stream] = buf
-    return buf
-
-
-def _launch(x, w, scale, layout, M, N, K, ksplit=None):
-    """Launch the kernel; ``ksplit`` overrides the split of K across
-    blocks (``"kn"`` only; 1 runs one block per tile over the whole K)."""
+def _launch(x, w, scale, layout, M, N, K):
+    """Launch the kernel: one pass, K split across a thread-block cluster
+    where the tiles alone do not fill the card (the kernel picks the
+    cluster); nothing is allocated but the output."""
     global launches
     dev = x.device
     for name, t in (("w", w), ("scale", scale)):
@@ -104,27 +78,19 @@ def _launch(x, w, scale, layout, M, N, K, ksplit=None):
                          "scale, and x with unit stride along K")
     if max(M * max(K, x.stride(0)), K * N) >= 2 ** 31:
         raise ValueError("int8 matmul operands too large for 32-bit strides")
-    if ksplit is None:
-        ksplit = _ksplit(M, N, K, layout)
-    if math.ceil(M / _MT) > 65535:
-        raise ValueError(f"M {M} exceeds the grid limit")
+    if math.ceil(M / 8) > 65535 or math.ceil(N / 64) > 65535:
+        raise ValueError(f"M {M} or N {N} exceeds the grid limit")
     out = torch.empty((M, N), dtype=x.dtype, device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    ws = ctr = None
-    if ksplit > 1:
-        ws = torch.empty(ksplit * math.ceil(M / _MT) * _MT * N,
-                         dtype=torch.float32, device=dev)
-        ctr = _tickets(dev, stream, math.ceil(M / _MT) * math.ceil(N / _BN))
     row = N if layout == "kn" else K
     vec = int(w.data_ptr() % 16 == 0 and row % 16 == 0)
+    xvec = int(x.data_ptr() % 16 == 0
+               and x.stride(0) * x.element_size() % 16 == 0)
     lib = _build.load_library()
     with torch.cuda.device(dev):
         err = lib.ptt_int8_matmul(
             x.data_ptr(), w.data_ptr(), scale.data_ptr(), out.data_ptr(),
-            None if ws is None else ws.data_ptr(),
-            None if ctr is None else ctr.data_ptr(),
             _DTYPE_CODES[x.dtype], _LAYOUTS[layout], M, N, K, x.stride(0),
-            ksplit, vec, stream)
+            vec, xvec, torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "int8_matmul")
     launches += 1
     return out

@@ -4,8 +4,11 @@ their plain versions.
 Counterpart of ``paddle_tpu/kernels/paged_attention.py``. Two kernels
 replace the two Pallas kernels there:
 
-- ``csrc/paged_attention_decode.cu`` (``_decode_kernel``): one new token
-  per sequence, :func:`paged_attention_decode`;
+- ``csrc/paged_attention_decode.cu(h)`` (``_decode_kernel``): one new
+  token per sequence, :func:`paged_attention_decode`, each page walk split
+  over blocks (flash-decoding); :func:`paged_decode_split_reference` is a
+  second plain version in the kernel's own form (its splits, its warps'
+  states, where P is rounded and the order of the merges);
 - ``csrc/paged_attention_prefill.cu`` (``_prefill_kernel``): a prompt
   chunk at a runtime offset, :func:`ragged_prefill_attention`, whose
   plain version is the XLA path :func:`paged_prefill_attention`;
@@ -43,12 +46,13 @@ import torch
 from . import _build
 
 __all__ = ["paged_attention_decode", "paged_attention_reference",
+           "paged_decode_split_reference",
            "ragged_prefill_attention", "paged_prefill_attention",
            "ragged_prefill_reference"]
 
 _NEG_INF = -1e30
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-_MAX_SMEM = 232448           # bytes of shared memory a block may use (H100)
+_MAX_SMEM = 49152            # static shared memory a block may use
 
 # kernel launches since each counter was last set to 0: decode, chunk prefill
 launches = 0
@@ -83,11 +87,140 @@ def paged_attention_reference(q, k_pages, v_pages, page_table, seq_lens,
     return torch.einsum("bnt,btnd->bnd", p, v.float()).to(q.dtype)
 
 
+# the decode kernel (csrc/paged_attention_decode.cuh): warps a block, the
+# blocks a decode step should give each SM where the pages allow (4, timed
+# alone, ran bucket 8 faster than 2, but inside the serving engine's
+# decode step it took 6.49 ms of 16 steps' device time against 5.57 with
+# 2 on an H100: PERF.md), and the most blocks a walk is split over (a
+# thread-block cluster)
+_DECODE_WARPS = 4
+_BLOCKS_PER_SM = 2
+_MAX_SPLIT = 8
+
+
+def _head_instance(g):
+    """The query heads a decode block takes for a group of ``g`` (the
+    kernel's ``head_instance``): 1, 2, 4 or 8; larger groups run in
+    ``ceil(g / 8)`` blocks of 8."""
+    return 1 if g <= 1 else 2 if g <= 2 else 4 if g <= 4 else 8
+
+
+def _decode_step(itemsize, d, g):
+    """Positions a warp takes at a time (the kernel's ``Walk::STEP``) for
+    elements of ``itemsize`` bytes, head dim ``d`` (its instance) and group
+    ``g``: 16-byte loads, ``d / vec`` lanes to a row, up to 16 rows a step
+    and ``8 / G`` load instructions a lane."""
+    vec = 16 // itemsize
+    rpi = 32 // (_build.instance_head_dim(d) // vec)
+    return max(1, min(8 // _head_instance(g), 16 // rpi)) * rpi
+
+
+def _decode_split(B, nkv, g, pps, sms):
+    """Blocks each (sequence, KV head) walk is split over, from host-known
+    shapes only (never ``seq_lens``, which live on the device): at least
+    ``_BLOCKS_PER_SM`` blocks an SM where the table's pages and the
+    cluster's ``_MAX_SPLIT`` blocks allow, each split a whole number of
+    pages."""
+    units = B * nkv * -(-g // _head_instance(g))
+    want = min(pps, _MAX_SPLIT, -(-_BLOCKS_PER_SM * sms // units))
+    if want <= 1:
+        return 1
+    per = max(pps // want, -(-pps // _MAX_SPLIT))     # pages a split
+    return -(-pps // per)
+
+
+_sm_counts: dict = {}
+
+
+def _sm_count(dev):
+    if dev not in _sm_counts:
+        _sm_counts[dev] = torch.cuda.get_device_properties(
+            dev).multi_processor_count
+    return _sm_counts[dev]
+
+
 def _smem_bytes(g, d, ps):
-    return 4 * (g * d + ps * (d + 1) + ps * d + g * ps + g * d + 2 * g)
+    """Shared memory of a decode block: each warp's (m, l, acc[d]) for the
+    block's query heads, and the block's merged state that the cluster
+    reads. No page is staged, so the page size ``ps`` does not enter."""
+    return 4 * (_DECODE_WARPS + 1) * _head_instance(g) * (d + 2)
 
 
-def _launch(q, k_pages, v_pages, page_table, seq_lens, scale):
+def paged_decode_split_reference(q, k_pages, v_pages, page_table, seq_lens,
+                                 scale=None, n_split=1, step=None):
+    """Plain PyTorch version of the decode kernel in its own form (same
+    arguments as :func:`paged_attention_decode`): each (sequence, KV head)
+    walk cut into ``n_split`` splits of ``ceil(pps / n_split)`` pages, each
+    split's positions taken ``step`` at a time (default: the kernel's
+    ``_decode_step``) by 4 warps in turn, each warp an f32 online softmax of
+    its own whose P = exp(S - m) is rounded to V's dtype against that
+    warp's running max before P.V (l sums the unrounded P); the warps'
+    states merged in warp order, then the splits' in split order (m the
+    max, l and acc rescaled by exp(m_i - m)); O = acc / max(l, 1e-30)
+    rounded once. f32 scores scaled after the product, -1e30 for masked
+    keys; a length past the table's reach reads only the table's pages."""
+    B, nh, d = q.shape
+    _, ps, nkv, _ = k_pages.shape
+    g = nh // nkv
+    pps = page_table.shape[1]
+    if scale is None:
+        scale = 1.0 / math.sqrt(d)
+    if step is None:
+        step = _decode_step(q.element_size(), d, g)
+    t = pps * ps
+    span = -(-pps // n_split) * ps
+    idx = page_table.long()
+    k = k_pages[idx].reshape(B, t, nkv, d)
+    v = v_pages[idx].reshape(B, t, nkv, d)
+    if g > 1:
+        k = k.repeat_interleave(g, dim=2)
+        v = v.repeat_interleave(g, dim=2)
+    s_all = torch.einsum("bnd,btnd->bnt", q.float(), k.float()) * scale
+    vf = v.float().transpose(1, 2)                           # [B, nh, t, d]
+    tmax = seq_lens.long().clamp(max=t)[:, None, None]       # [B, 1, 1]
+    dev = q.device
+
+    def empty():
+        return (torch.full((B, nh, 1), _NEG_INF, device=dev),
+                torch.zeros((B, nh, 1), device=dev),
+                torch.zeros((B, nh, d), device=dev))
+
+    def merge(states):
+        mm = torch.stack([m for m, _, _ in states]).amax(0)
+        ll, aa = torch.zeros_like(mm), torch.zeros((B, nh, d), device=dev)
+        for m, l, a in states:
+            e = torch.exp(m - mm)
+            ll = ll + e * l
+            aa = aa + e * a
+        return mm, ll, aa
+
+    splits = []
+    for t0 in range(0, t, span):
+        t1 = min(t0 + span, t)
+        warps = [empty() for _ in range(_DECODE_WARPS)]
+        for j, base in enumerate(range(t0, t1, step)):
+            m, l, a = warps[j % _DECODE_WARPS]
+            pos = torch.arange(base, min(base + step, t1), device=dev)
+            live = pos[None, None, :] < tmax                 # [B, 1, r]
+            s = torch.where(live, s_all[:, :, pos], _NEG_INF)
+            m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+            p = torch.exp(s - m_new)
+            corr = torch.exp(m - m_new)
+            vv = torch.where(live[..., None], vf[:, :, pos], 0.0)
+            pv = torch.einsum("bnt,bntd->bnd", p.to(v.dtype).float(), vv)
+            ran = base < tmax                                # [B, 1, 1]
+            warps[j % _DECODE_WARPS] = (
+                torch.where(ran, m_new, m),
+                torch.where(ran, corr * l + p.sum(-1, keepdim=True), l),
+                torch.where(ran, corr * a + pv, a))
+        splits.append(merge(warps))
+    _, ll, aa = merge(splits)
+    return (aa / ll.clamp_min(1e-30)).to(q.dtype)
+
+
+def _launch(q, k_pages, v_pages, page_table, seq_lens, scale, n_split=None):
+    """Launch the decode kernel; ``n_split`` overrides the wrapper's split
+    of each page walk (``_decode_split``)."""
     global launches
     B, nh, d = q.shape
     num_pages, ps, nkv, _ = k_pages.shape
@@ -125,17 +258,23 @@ def _launch(q, k_pages, v_pages, page_table, seq_lens, scale):
         raise ValueError("pool too large for the kernel's indexing")
     smem = _smem_bytes(nh // nkv, kd, ps)
     if smem > _MAX_SMEM:
-        raise ValueError(f"page_size {ps} x head dim {d} needs {smem} bytes "
-                         f"of shared memory (> {_MAX_SMEM})")
-    if B >= 65536:
-        raise ValueError(f"batch {B} exceeds the grid limit")
+        raise ValueError(f"head dim {d} x group {nh // nkv} needs {smem} "
+                         f"bytes of shared memory (> {_MAX_SMEM})")
+    pps = page_table.shape[1]
+    g = nh // nkv
+    if B >= 65536 or nkv * -(-g // _head_instance(g)) >= 65536:
+        raise ValueError(f"batch {B} or KV heads {nkv} exceed the grid limit")
+    if n_split is None:
+        n_split = _decode_split(B, nkv, g, pps, _sm_count(dev))
+    if not 1 <= n_split <= min(pps, _MAX_SPLIT):
+        raise ValueError(f"n_split {n_split} outside 1..{min(pps, _MAX_SPLIT)}")
     out = torch.empty((B, nh, d), dtype=q.dtype, device=dev)
     lib = _build.load_library()
     with torch.cuda.device(dev):
         err = lib.ptt_paged_attention_decode(
             q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
             page_table.data_ptr(), seq_lens.data_ptr(), out.data_ptr(),
-            _DTYPE_CODES[q.dtype], B, nh, nkv, d, ps, page_table.shape[1],
+            _DTYPE_CODES[q.dtype], B, nh, nkv, d, ps, pps, n_split,
             q.stride(0), q.stride(1), float(scale),
             torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "paged_attention_decode")

@@ -802,3 +802,166 @@ def test_moe_engine_on_cuda_matches_cpu():
     gen = ternie.ErnieMoeGenerator(model)
     for p, toks in zip(prompts, outs[1]):
         assert toks == list(gen(p, 6)[0])
+
+
+# ------------------------------ the one-pass int8 kernel, the split decode
+
+def _int8_inputs(dev, dt, M, K, N, layout, offset, seed, x_pad=0):
+    """x [M, K] (a view with row stride K + x_pad when x_pad > 0), an int8
+    weight in its stored layout starting ``offset`` bytes into its buffer
+    (not 16-byte aligned when offset % 16), and f32 scales."""
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy(_rand((M, K + x_pad), seed)).to(dev, dt)[:, :K]
+    shape = (K, N) if layout == "kn" else (N, K)
+    buf = torch.from_numpy(rng.integers(-128, 128, K * N + offset)
+                           .astype(np.int8)).to(dev)
+    s = torch.from_numpy(rng.uniform(1e-4, 8e-4, N).astype(np.float32)).to(dev)
+    return x, buf[offset:].view(shape), s
+
+
+def _hold_int8(out, ref, dtype):
+    """chip_smoke's limit: the largest error within 8e-3 (bf16, one
+    rounding of the f32 result) or 1e-5 (f32, sums in another order) of
+    max(1, max |ref|)."""
+    top = max(1.0, ref.float().abs().max().item())
+    err = (out.float() - ref.float()).abs().max().item()
+    assert err <= (8e-3 if dtype == "bfloat16" else 1e-5) * top, err
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("layout", ["kn", "nk"])
+@pytest.mark.parametrize("M", [1, 3, 8, 9, 17, 256])
+@pytest.mark.parametrize("K,N,offset", [(1024, 1024, 0), (1000, 77, 0),
+                                        (200, 3000, 3)])
+def test_int8_one_pass_shapes(dtype, layout, M, K, N, offset):
+    """Rows 1 to 256 (8 and 16 a block), ragged N and K, a weight that is
+    not 16-byte aligned; two calls give the same bits."""
+    dev = _cuda()
+    x, w, s = _int8_inputs(dev, getattr(torch, dtype), M, K, N, layout,
+                           offset, M * 7 + K)
+    out = tim.int8_matmul(x, w, s, layout=layout)
+    again = tim.int8_matmul(x, w, s, layout=layout)
+    torch.cuda.synchronize()
+    assert torch.equal(out, again)
+    _hold_int8(out, tim.int8_matmul_reference(x, w, s, layout), dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("layout", ["kn", "nk"])
+@pytest.mark.parametrize("x_pad", [3, 8])
+def test_int8_reads_x_with_a_row_stride(dtype, layout, x_pad):
+    """x as a view whose row stride is not (3) and is (8) a multiple of 16
+    bytes in bf16."""
+    dev = _cuda()
+    x, w, s = _int8_inputs(dev, getattr(torch, dtype), 8, 1024, 640, layout,
+                           0, 11, x_pad=x_pad)
+    assert x.stride(0) == 1024 + x_pad
+    _hold_int8(tim.int8_matmul(x, w, s, layout=layout),
+               tim.int8_matmul_reference(x, w, s, layout), dtype)
+
+
+def _decode_inputs(dev, dt, B, nh, nkv, d, ps, pps, lens, seed):
+    npg = B * pps + 1
+    q = torch.from_numpy(_rand((B, nh, d), seed)).to(dev, dt)
+    kp = torch.from_numpy(_rand((npg, ps, nkv, d), seed + 1)).to(dev, dt)
+    vp = torch.from_numpy(_rand((npg, ps, nkv, d), seed + 2)).to(dev, dt)
+    perm = np.random.default_rng(seed).permutation(np.arange(1, npg))
+    pt = torch.from_numpy(perm.reshape(B, pps).astype(np.int32)).to(dev)
+    sl = torch.tensor(lens, dtype=torch.int32, device=dev)
+    return q, kp, vp, pt, sl
+
+
+def _hold_decode(dtype, q, kp, vp, pt, sl, n_split):
+    """The kernel at ``n_split`` against the plain version and the plain
+    version in its own form, idle rows finite, two calls bit-equal."""
+    scale = q.shape[-1] ** -0.5
+    out = tpa._launch(q, kp, vp, pt, sl, scale, n_split=n_split)
+    again = tpa._launch(q, kp, vp, pt, sl, scale, n_split=n_split)
+    torch.cuda.synchronize()
+    assert torch.equal(out, again)
+    assert bool(torch.isfinite(out.float()).all())
+    live = sl > 0
+    for ref in (tpa.paged_attention_reference(q, kp, vp, pt, sl),
+                tpa.paged_decode_split_reference(q, kp, vp, pt, sl,
+                                                 n_split=n_split)):
+        torch.testing.assert_close(out.float()[live], ref.float()[live],
+                                   rtol=TOL[dtype], atol=TOL[dtype])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("lens", [[1, 1, 0, 1], [16, 16, 16, 0],
+                                  [17, 0, 17, 33], [96, 96, 0, 96],
+                                  [97, 500, 0, 200]],
+                         ids=["one", "page", "page_plus_one", "full",
+                              "past_the_table"])
+def test_decode_split_lengths(dtype, lens):
+    """Lengths 1, one page, a page and one, the whole table and past its
+    reach (only the table's pages are read), each at 1, 2, 3 and 6 splits
+    of the 6-page table; idle slots give finite rows."""
+    dev = _cuda()
+    args = _decode_inputs(dev, getattr(torch, dtype), 4, 8, 8, 128, 16, 6,
+                          lens, 31)
+    for n_split in (1, 2, 3, 6):
+        _hold_decode(dtype, *args, n_split)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("g", [1, 2, 3, 4, 8, 12])
+def test_decode_split_query_groups(dtype, g):
+    """GQA: 1 to 12 query heads a KV head (up to 8 a block, 12 in two
+    blocks), n_split above the live pages."""
+    dev = _cuda()
+    args = _decode_inputs(dev, getattr(torch, dtype), 3, 2 * g, 2, 64, 16,
+                          8, [5, 40, 0], 41)
+    for n_split in (1, 4, 8):
+        _hold_decode(dtype, *args, n_split)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("ps", [8, 16, 32, 64, 128])
+def test_decode_split_page_sizes(dtype, ps):
+    """Pages of 8 to 128 positions (a 16-position step spans pages at 8),
+    up to the largest split, a cluster of 8."""
+    dev = _cuda()
+    pps = 1024 // ps
+    args = _decode_inputs(dev, getattr(torch, dtype), 4, 8, 8, 128, ps, pps,
+                          [1000, 3, 0, 517], 51)
+    for n_split in (1, tpa._decode_split(4, 8, 1, pps, 132), min(pps, 8)):
+        _hold_decode(dtype, *args, n_split)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("d", [16, 32, 48, 64, 80, 128])
+def test_decode_split_head_dims(dtype, d):
+    """Head dims at each instance's full width and masked (48, 80)."""
+    dev = _cuda()
+    args = _decode_inputs(dev, getattr(torch, dtype), 4, 4, 2, d, 32, 5,
+                          [160, 33, 0, 64], 61 + d)
+    for n_split in (1, 2, 5):
+        _hold_decode(dtype, *args, n_split)
+
+
+@pytest.mark.gpu
+def test_decode_wrapper_splits_from_shapes_and_counts_one_launch():
+    """The public wrapper picks its split from the shapes (the same for
+    any lengths), launches once a call and matches the split form."""
+    dev = _cuda()
+    args = _decode_inputs(dev, torch.bfloat16, 8, 8, 8, 128, 64, 16,
+                          [970, 545, 734, 266, 897, 162, 428, 0], 71)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    n_split = tpa._decode_split(8, 8, 1, 16, sms)
+    assert 8 * 8 * n_split >= 2 * sms
+    n0 = tpa.launches
+    out = tpa.paged_attention_decode(*args)
+    torch.cuda.synchronize()
+    assert tpa.launches == n0 + 1
+    torch.testing.assert_close(
+        out.float(), tpa.paged_decode_split_reference(
+            *args, n_split=n_split).float(), rtol=TOL["bfloat16"],
+        atol=TOL["bfloat16"])
