@@ -8,9 +8,13 @@ Twelve phases, one result per line:
    every CUDA kernel from ``paddle_tpu_torch/csrc`` with nvcc for sm_90a;
 2. ``flash``, ``flash_bwd``, ``paged`` — each kernel against its plain
    PyTorch version on the card, in bf16 and f32 (bf16 attention runs on
-   the tensor cores, f32 on the CUDA cores; the phases read the bf16
-   instances' registers and spills from the build log, and the profiler's
-   kernel names show which kernel each dtype ran): the flash forward at
+   the tensor cores: the flash forward and the dK/dV pass on ``wgmma``
+   fed by TMA where a tensor map can describe the views, else, and for
+   the dQ pass, on ``mma.sync``; f32 on the CUDA cores; the phases read
+   the bf16 instances' registers and spills from the build log, count
+   HGMMA and UTMALDG in the wgmma kernels' SASS, and the profiler's
+   kernel names show which kernel each dtype and view ran, the wgmma
+   ones timed beside the ``mma.sync`` ones): the flash forward at
    the serving shapes, a causal ``q_offset`` case, a masked head dim (d =
    80, GQA) and the training shape on the q/k/v views of one fused QKV
    tensor, two calls there bit-equal, timed at the serving and the
@@ -336,36 +340,76 @@ def _flash_case(torch, fa, dt, q, k, v, off, label):
     return err
 
 
-def _kernel_names(torch, fn, calls=3):
+def _kernel_names(torch, fn, calls=3, attempts=4):
     """The names of the kernels ``fn`` launches, by the profiler over a
-    few calls; profiled once more if the profiler recorded no device
-    activity at all (it then measured nothing)."""
+    few calls; profiled again, up to ``attempts`` times in all, while the
+    profiler records no device activity at all (it then measured nothing:
+    seen on the card's machine for two profiles in a row, PR 10 call 18)."""
     def run():
         for _ in range(calls):
             fn()
     names = _device_time(torch, run)[1]
-    if not names:
+    for _ in range(attempts - 1):
+        if names:
+            break
         _log("  the profiler recorded no device activity; profiling again")
         names = _device_time(torch, run)[1]
     return sorted(names)
 
 
-def _check_routes(torch, what, fns, tc_name, cuda_core_name):
-    """bf16 runs the tensor-core kernel, f32 the CUDA-core one: the names
-    the profiler sees for ``fns[dtype]``."""
-    for dt, fn in fns.items():
-        names = [n for n in _kernel_names(torch, fn)
-                 if tc_name in n or cuda_core_name in n]
-        want = tc_name if dt == "bfloat16" else cuda_core_name
-        _log(f"{what} {dt} launches: {names}")
-        if not names or any(want not in n for n in names):
-            raise AssertionError(f"{what} {dt} did not run {want}: {names} "
+def _check_routes(torch, what, fns, names):
+    """Each ``fns[label] = (fn, want)`` ran the kernel named ``want`` and no
+    other of ``names`` (the kernels that compute ``what``), by the names
+    the profiler sees."""
+    for label, (fn, want) in fns.items():
+        ran = [n for n in _kernel_names(torch, fn)
+               if any(k in n for k in names)]
+        _log(f"{what} {label} launches: {ran}")
+        if not ran or any(want not in n for n in ran):
+            raise AssertionError(f"{what} {label} did not run {want}: {ran} "
                                  f"(all kernels seen: {_kernel_names(torch, fn)})")
+
+
+# the kernels of each route (flash_attention.kernel_route): wgmma, mma.sync
+# (tensor cores, bf16) and the CUDA-core f32 kernel
+FLASH_FWD_KERNELS = dict(wgmma="flash_fwd_wg_kernel",
+                         mma_sync="flash_fwd_tc_kernel",
+                         cuda_core="flash_fwd_kernel")
+FLASH_DKV_KERNELS = dict(wgmma="flash_bwd_dkv_wg_kernel",
+                         mma_sync="flash_bwd_dkv_tc_kernel",
+                         cuda_core="flash_bwd_dkv_kernel")
+
+
+def _route_cases(torch, fa, views, launch):
+    """``launch(*views)`` on bf16 main-path views (``views``: the training
+    shape's fused-QKV views at B = 1), the same under
+    ``fa.mma_sync_route()``, in f32, and on a bf16 view TMA cannot
+    describe (head dim 100: a 200-byte head stride), each with the route
+    ``fa.kernel_route`` names for it."""
+    def under_mma_sync():
+        with fa.mma_sync_route():
+            launch(*views)
+    odd = torch.randn(1, 256, len(views) + 1, 1, 100, device="cuda").to(
+        torch.bfloat16).unbind(2)[:len(views)]
+    f32 = [t.float() for t in views]
+    cases = {"bf16 main-path views": (lambda: launch(*views),
+                                      fa.kernel_route(*views)),
+             "bf16 under mma_sync_route": (under_mma_sync, "mma_sync"),
+             "f32": (lambda: launch(*f32), fa.kernel_route(*f32)),
+             "bf16 head dim 100": (lambda: launch(*odd),
+                                   fa.kernel_route(*odd))}
+    want = dict(zip(cases, ("wgmma", "mma_sync", "cuda_core", "mma_sync")))
+    for label, (_, route) in cases.items():
+        if route != want[label]:
+            raise AssertionError(f"kernel_route gives {route} for {label}, "
+                                 f"not {want[label]}")
+    return cases
 
 
 def phase_flash(torch, res):
     from paddle_tpu_torch.kernels import flash_attention as fa
     _ptxas_check(res, "flash_fwd", (FLASH_FWD_TC,), 8, gate=_d128)
+    _wgmma_check(res, "flash_fwd_wg", FLASH_FWD_WG, 4)
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
     randn = lambda *shape: torch.randn(*shape, device=dev,  # noqa: E731
@@ -412,11 +456,15 @@ def phase_flash(torch, res):
     if not same:
         raise AssertionError("two forward calls on the same inputs differ")
     del first, second
+    cases = _route_cases(
+        torch, fa, [x[:1] for x in (tq, tk, tv)],
+        lambda q, k, v: fa.flash_attention_fwd(q, k, v, True))
     _check_routes(torch, "flash_attention_fwd", {
-        dt: (lambda t=getattr(torch, dt): fa.flash_attention_fwd(
-            *(x[:1].to(t) for x in (tq, tk, tv)), True))
-        for dt in ("bfloat16", "float32")},
-        "flash_fwd_tc_kernel", "flash_fwd_kernel")
+        label: (fn, FLASH_FWD_KERNELS[route])
+        for label, (fn, route) in cases.items()},
+        tuple(FLASH_FWD_KERNELS.values()))
+    res["flash_routes"] = {label: route for label, (_, route) in
+                           cases.items()}
 
     # timed with the stream held: at the serving shape the kernel takes
     # less time than the wrapper's host issue
@@ -428,6 +476,10 @@ def phase_flash(torch, res):
         ms = _time_held_ms(
             torch, lambda: fa.flash_attention_fwd(q, k, v, True),
             50 if b == 1 else 20)
+        with fa.mma_sync_route():    # the parent's kernel, in this call
+            mma_ms = _time_held_ms(
+                torch, lambda: fa.flash_attention_fwd(q, k, v, True),
+                50 if b == 1 else 20)
         plain_ms = _time_held_ms(
             torch, lambda: fa.flash_attention_reference(q, k, v, True),
             20 if b == 1 else 3, warmup=3 if b == 1 else 1)
@@ -447,12 +499,17 @@ def phase_flash(torch, res):
         timings[label] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                               bound_ms=bound_ms, bound_by=by,
                               tflops=flops / ms / 1e9, gflop=flops / 1e9,
-                              mbytes=nbytes / 1e6, **extra)
+                              mbytes=nbytes / 1e6, mma_sync_ms=mma_ms,
+                              mma_sync_tflops=flops / mma_ms / 1e9,
+                              query_rows=fa.fwd_query_rows(b, n, s), **extra)
         views = (f", sdpa on the same strided views "
                  f"{extra['library_views_ms']:.4f} ms" if extra else "")
         _log(f"flash_attention_fwd bf16 {label} shape B={b} S={s} nh={n} "
-             f"d={d} causal: kernel {ms:.4f} ms ({flops / ms / 1e9:.1f} "
-             f"TFLOP/s), plain {plain_ms:.4f} ms, sdpa (contiguous "
+             f"d={d} causal: wgmma kernel ({fa.fwd_query_rows(b, n, s)} "
+             f"query rows a block) {ms:.4f} ms ({flops / ms / 1e9:.1f} "
+             f"TFLOP/s), the mma.sync kernel {mma_ms:.4f} ms "
+             f"({flops / mma_ms / 1e9:.1f} TFLOP/s), plain {plain_ms:.4f} "
+             f"ms, sdpa (contiguous "
              f"[B, N, S, D] copies) {lib_ms:.4f} ms ({flops / lib_ms / 1e9:.1f}"
              f" TFLOP/s){views}, bound {bound_ms:.5f} ms ({by}: "
              f"{flops / 1e9:.3f} GFLOP, {nbytes / 1e6:.3f} MB)")
@@ -461,12 +518,12 @@ def phase_flash(torch, res):
     t = timings["serving"]
     res["flash"] = dict(
         name="flash_attention_fwd", route="cuda",
-        source="paddle_tpu_torch/csrc/attention_fwd_tc.cuh",
+        source="paddle_tpu_torch/csrc/flash_attention_fwd_wg.cu",
         replaces="paddle_tpu/kernels/flash_attention.py:150",
         launches=None, max_abs_err=main[3], ms=t["ms"],
         plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
         bound_by=t["bound_by"], library_ms=t["library_ms"],
-        training_shape=timings["training"])
+        mma_sync_ms=t["mma_sync_ms"], training_shape=timings["training"])
     res["flash_worst_err"] = worst
 
 
@@ -601,9 +658,53 @@ def _d128(label):
     return "D=128" in label
 
 
+# the wgmma kernels' instances (mangled names): head dim D, consumer
+# warpgroups NC of the forward
+FLASH_FWD_WG = r"flash_fwd_wg_kernelILi(?P<D>\d+)ELi(?P<NC>\d)E"
+FLASH_DKV_WG = r"flash_bwd_dkv_wg_kernelILi(?P<D>\d+)EE"
+
+
+def _sass_counts(pattern):
+    """{mangled kernel: {"HGMMA": n, "UTMALDG": n}} for the kernels of the
+    built library whose names match ``pattern``: the warpgroup MMA and TMA
+    load instructions in their SASS (``cuobjdump -sass``)."""
+    from pathlib import Path
+
+    from paddle_tpu_torch.kernels import _build
+    cuobjdump = Path(_build._nvcc()).parent / "cuobjdump"
+    sass = subprocess.run(
+        [str(cuobjdump), "-sass", str(_build.library_path())],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        timeout=300, check=True).stdout
+    out = {}
+    for block in sass.split("Function : ")[1:]:
+        name = block.split("\n", 1)[0].strip()
+        if re.search(pattern, name):
+            out[name] = {op: len(re.findall(rf"\b{op}\b", block))
+                         for op in ("HGMMA", "UTMALDG")}
+    return out
+
+
+def _wgmma_check(res, key, pattern, count):
+    """The wgmma kernels' instances: registers and spills from the build
+    log (none may spill), and HGMMA and UTMALDG in the SASS of each (fails
+    if either is missing: the kernel would not be on wgmma and TMA)."""
+    _ptxas_check(res, key, (pattern,), count)
+    sass = _sass_counts(pattern)
+    res[f"{key}_sass"] = sass
+    _log(f"{key} SASS: " + "; ".join(
+        f"{re.search(pattern, k).group(0)}: HGMMA {v['HGMMA']}, UTMALDG "
+        f"{v['UTMALDG']}" for k, v in sorted(sass.items())))
+    if len(sass) != count or not all(v["HGMMA"] and v["UTMALDG"]
+                                     for v in sass.values()):
+        raise AssertionError(f"{key}: {len(sass)} of {count} instances in "
+                             f"the SASS, each must hold HGMMA and UTMALDG")
+
+
 def phase_flash_bwd(torch, res):
     from paddle_tpu_torch.kernels import flash_attention as fa
     _ptxas_check(res, "flash_bwd", (FLASH_BWD_TC,), 16, gate=_d128)
+    _wgmma_check(res, "flash_bwd_wg", FLASH_DKV_WG, 2)
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(4)
     randn = lambda *shape: torch.randn(*shape, device=dev,  # noqa: E731
@@ -709,10 +810,23 @@ def phase_flash_bwd(torch, res):
     del refs, got, ctl
     scale = 1.0 / math.sqrt(d)
     _, delta = fa._launch_dq(q, k, v, o, lse, do, True, scale, 0)
+    cases = _route_cases(
+        torch, fa, [x[:1] for x in (q, k, v, do)],
+        lambda q1, k1, v1, do1: fa._launch_dkv(
+            q1, k1, v1, do1, lse[:1], delta[:1], True, scale, 0))
+    _check_routes(torch, "flash_attention_bwd_dkv", {
+        label: (fn, FLASH_DKV_KERNELS[route])
+        for label, (fn, route) in cases.items()},
+        tuple(FLASH_DKV_KERNELS.values()))
+    res["flash_bwd_dkv_routes"] = {label: route for label, (_, route) in
+                                   cases.items()}
     dq_ms = _time_ms(torch, lambda: fa._launch_dq(
         q, k, v, o, lse, do, True, scale, 0), 20)
     dkv_ms = _time_ms(torch, lambda: fa._launch_dkv(
         q, k, v, do, lse, delta, True, scale, 0), 20)
+    with fa.mma_sync_route():        # the parent's dK/dV kernel, this call
+        dkv_mma_ms = _time_ms(torch, lambda: fa._launch_dkv(
+            q, k, v, do, lse, delta, True, scale, 0), 20)
     plain_ms = _time_ms(torch, lambda: fa.flash_attention_bwd_reference(
         q, k, v, o, lse, do, True), 5, warmup=1)
     sdpa = torch.nn.functional.scaled_dot_product_attention
@@ -738,18 +852,27 @@ def phase_flash_bwd(torch, res):
             ("flash_bwd_dkv", "flash_attention_bwd_dkv", dkv_ms, dkv_flops,
              dkv_bytes, max(errs["dk"][0], errs["dv"][0]))):
         bound_ms, by = _bound(flops, nbytes, "bfloat16")
+        parent = (f"; the mma.sync kernel {dkv_mma_ms:.4f} ms, "
+                  f"{flops / dkv_mma_ms / 1e9:.2f} TFLOP/s"
+                  if key == "flash_bwd_dkv" else "")
         _log(f"{name} bf16 B={b} S={s} nh={n} d={d} causal: kernel "
              f"{ms:.4f} ms, bound {bound_ms:.5f} ms ({by}: "
              f"{flops / 1e9:.3f} GFLOP, {nbytes / 1e6:.3f} MB), "
-             f"{flops / ms / 1e9:.2f} TFLOP/s")
+             f"{flops / ms / 1e9:.2f} TFLOP/s{parent}")
         out[key] = dict(
             name=name, route="cuda",
-            source="paddle_tpu_torch/csrc/flash_attention_bwd_tc.cuh",
+            source=("paddle_tpu_torch/csrc/flash_attention_bwd_tc.cuh"
+                    if key == "flash_bwd_dq" else
+                    "paddle_tpu_torch/csrc/flash_attention_bwd_wg.cu"),
             replaces=("paddle_tpu/kernels/flash_attention.py:238"
                       if key == "flash_bwd_dq" else
                       "paddle_tpu/kernels/flash_attention.py:283"),
             launches=None, max_abs_err=err, ms=ms, plain_ms=plain_ms,
-            bound_ms=bound_ms, bound_by=by, library_ms=lib_ms)
+            bound_ms=bound_ms, bound_by=by, library_ms=lib_ms,
+            tflops=flops / ms / 1e9)
+        if key == "flash_bwd_dkv":
+            out[key].update(mma_sync_ms=dkv_mma_ms,
+                            mma_sync_tflops=flops / dkv_mma_ms / 1e9)
     _log(f"flash backward bf16 at the training shape: dq + dkv kernels "
          f"{dq_ms + dkv_ms:.4f} ms; plain backward (dq, dk, dv) "
          f"{plain_ms:.4f} ms; SDPA backward (autograd.grad of "
@@ -1024,11 +1147,13 @@ def phase_paged_prefill(torch, res):
     if not same:
         raise AssertionError("two chunk-prefill calls on the same inputs "
                              "differ")
+    prefill_kernels = dict(bfloat16="paged_prefill_tc_kernel",
+                           float32="paged_prefill_kernel")
     _check_routes(torch, "ragged_prefill_attention", {
         dt: (lambda t=getattr(torch, dt): pa.ragged_prefill_attention(
-            q.to(t), pools[0][1].to(t), pools[0][2].to(t), pt, off))
-        for dt in ("bfloat16", "float32")},
-        "paged_prefill_tc_kernel", "paged_prefill_kernel")
+            q.to(t), pools[0][1].to(t), pools[0][2].to(t), pt, off),
+            prefill_kernels[dt])
+        for dt in ("bfloat16", "float32")}, tuple(prefill_kernels.values()))
 
     def cycling(fn, step=[0]):
         def run():
@@ -1623,11 +1748,11 @@ def _device_time(torch, fn):
 
 
 def _kernel_group(name):
-    if "flash_fwd_" in name:          # the f32 kernel and the bf16 _tc one
+    if "flash_fwd_" in name:          # the f32 kernel, the bf16 _wg and _tc
         return "flash_attention_fwd"
     if "flash_bwd_dq_" in name:       # the f32 kernel and the bf16 _tc one
         return "flash_attention_bwd_dq"
-    if "flash_bwd_dkv_" in name:
+    if "flash_bwd_dkv_" in name:      # the f32 kernel, the bf16 _wg and _tc
         return "flash_attention_bwd_dkv"
     if "paged_decode_" in name:
         return "paged_attention_decode"
@@ -1648,17 +1773,26 @@ def _kernel_group(name):
     return "other (elementwise and reductions)"
 
 
+# the kernel each attention group runs in bf16 on the main paths' views
+BF16_ATTENTION_KERNELS = {
+    "flash_attention_fwd": FLASH_FWD_KERNELS["wgmma"],
+    "flash_attention_bwd_dq": "flash_bwd_dq_tc_kernel",
+    "flash_attention_bwd_dkv": FLASH_DKV_KERNELS["wgmma"],
+    "ragged_prefill_attention": "paged_prefill_tc_kernel"}
+
+
 def _group_times(by_name):
     """Device microseconds by kernel group. Every window profiled here
-    runs bf16, so its attention forwards must be the tensor-core kernels:
-    raises if a flash-forward or chunk-prefill kernel of another name ran."""
+    runs bf16 on the main paths' views, so its attention kernels must be
+    the wgmma (flash forward, dK/dV) and mma.sync (dQ, chunk prefill)
+    ones: raises if an attention kernel of another name ran."""
     groups = {}
     for name, us in by_name.items():
         g = _kernel_group(name)
         groups[g] = groups.get(g, 0.0) + us
-        if g in ("flash_attention_fwd", "ragged_prefill_attention") \
-                and "_tc_kernel" not in name:
-            raise AssertionError(f"a bf16 window ran {name}")
+        want = BF16_ATTENTION_KERNELS.get(g)
+        if want is not None and want not in name:
+            raise AssertionError(f"a bf16 window ran {name}, not {want}")
     return groups
 
 

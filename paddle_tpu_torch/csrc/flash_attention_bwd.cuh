@@ -18,8 +18,11 @@
 // rounded once, at the end.
 //
 // Dtypes: these are the f32 kernels, on the CUDA cores, whose f32 sums
-// the f32 limits need. bf16 operands go to the tensor-core kernels of
-// flash_attention_bwd_tc.cuh (launch_dq / launch_dkv route by dtype).
+// the f32 limits need. bf16 operands go to the tensor cores (launch_dq /
+// launch_dkv route by dtype): the dQ pass to flash_attention_bwd_tc.cuh's
+// mma.sync kernel; the dK/dV pass to the wgmma kernel of
+// flash_attention_bwd_wg.cu where TMA can describe q, k, v and dO, else to
+// flash_attention_bwd_tc.cuh's (the rule: attention_wg.cuh).
 //
 // What bounds it on an H100: at the training shape (B = 12, S = 1024,
 // 8 heads of 128, causal) the two passes need 5 products of S x S x D per
@@ -54,6 +57,7 @@
 // (flash_attention_bwd_masked.cu).
 #pragma once
 
+#include "attention_wg.cuh"
 #include "common.cuh"
 #include "flash_attention_bwd_tc.cuh"
 
@@ -425,6 +429,11 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v,
                        int Sk, int hd, const int* st, int causal,
                        int q_offset, float scale, cudaStream_t stream) {
   if constexpr (std::is_same_v<T, __nv_bfloat16>) {
+    const void* views[4] = {q, k, v, dout};
+    if (attn_wg::takes(views, st, 4))
+      return attn_wg::launch_dkv(q, k, v, dout, lse, delta, dk, dv, B, Nq,
+                                 Nkv, Sq, Sk, hd, st, causal, q_offset, scale,
+                                 stream);
     return flash_bwd_tc::launch_dkv<D, FULL>(q, k, v, dout, lse, delta, dk,
                                              dv, B, Nq, Nkv, Sq, Sk, hd, st,
                                              causal, q_offset, scale, stream);

@@ -14,9 +14,10 @@
 // O = acc / l.
 //
 // Dtypes: this is the f32 kernel, on the CUDA cores, whose f32 products
-// the f32 limits need. bf16 operands go to the tensor-core kernel of
-// attention_fwd_tc.cuh (launch routes by dtype), which also holds the
-// bf16 bound and design.
+// the f32 limits need. bf16 operands go to the tensor cores (launch routes
+// by dtype): the wgmma kernel of flash_attention_fwd_wg.cu where TMA can
+// describe q, k and v, else the mma.sync kernel of attention_fwd_tc.cuh
+// (the rule: attention_wg.cuh); those files hold the bf16 bound and design.
 //
 // What bounds it on an H100: at the serving shapes (S <= 1024, d = 128,
 // 8 heads, batch 1) the causal work is ~2 GFLOP against ~8 MB of traffic,
@@ -39,6 +40,7 @@
 #include <type_traits>
 
 #include "attention_fwd_tc.cuh"
+#include "attention_wg.cuh"
 #include "common.cuh"
 
 namespace ptt {
@@ -226,6 +228,10 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
                    const int* st, int causal, int q_offset, float scale,
                    cudaStream_t stream) {
   if constexpr (std::is_same_v<T, __nv_bfloat16>) {
+    const void* views[3] = {q, k, v};
+    if (attn_wg::takes(views, st, 3))
+      return attn_wg::launch_fwd(q, k, v, o, lse, B, Nq, Nkv, Sq, Sk, hd, st,
+                                 causal, q_offset, scale, stream);
     return attn_fwd_tc::launch_flash<D, FULL>(q, k, v, o, lse, B, Nq, Nkv,
                                               Sq, Sk, hd, st, causal,
                                               q_offset, scale, stream);

@@ -23,9 +23,16 @@ Dispatch: a CPU tensor takes the plain version
 (:func:`flash_attention_reference`, :func:`flash_attention_bwd_reference`);
 a CUDA tensor launches the kernel or raises. ``launches``,
 ``dq_launches`` and ``dkv_launches`` count kernel launches.
+
+Routes (:func:`kernel_route`, the C launch's rule from shapes and strides):
+bf16 forward and dK/dV launches whose loaded views TMA can describe run
+the ``wgmma`` kernels (``csrc/flash_attention_fwd_wg.cu``,
+``csrc/flash_attention_bwd_wg.cu``), other bf16 views the ``mma.sync``
+ones, f32 the CUDA-core ones; the dQ pass is ``mma.sync`` in bf16.
 """
 from __future__ import annotations
 
+import contextlib
 import math
 
 import torch
@@ -34,7 +41,8 @@ from . import _build
 
 __all__ = ["flash_attention", "flash_attention_bshd", "flash_attention_fwd",
            "flash_attention_bwd", "flash_attention_reference",
-           "flash_attention_bwd_reference", "supported"]
+           "flash_attention_bwd_reference", "supported", "kernel_route",
+           "fwd_query_rows", "mma_sync_route"]
 
 MIN_SEQ = 64                 # the JAX gate's MIN_BLOCK // 2 profit threshold
 _NEG_INF = -1e30
@@ -45,6 +53,54 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 launches = 0
 dq_launches = 0
 dkv_launches = 0
+
+
+_force_mma_sync = False
+H100_SMS = 132
+
+
+def _tma_view(t) -> bool:
+    """Can a TMA tensor map describe this ``[B, S, N, D]`` view: a 16-byte
+    aligned base and batch, row and head strides that are positive
+    multiples of 16 bytes (``csrc/hopper.cuh`` ``tma_view``)?"""
+    return t.data_ptr() % 16 == 0 and all(
+        s > 0 and s * t.element_size() % 16 == 0 for s in t.stride()[:3])
+
+
+def kernel_route(*views) -> str:
+    """The kernel a forward launch on ``q, k, v`` or a dK/dV launch on
+    ``q, k, v, do`` takes, by the C launch's rule (``csrc/attention_wg.cuh``
+    ``takes``): ``"cuda_core"`` for f32; for bf16 ``"wgmma"`` where TMA can
+    describe every view, else ``"mma_sync"`` (also inside
+    :func:`mma_sync_route`)."""
+    if views[0].dtype != torch.bfloat16:
+        return "cuda_core"
+    if _force_mma_sync or not all(_tma_view(t) for t in views):
+        return "mma_sync"
+    return "wgmma"
+
+
+def fwd_query_rows(b, n, sq, num_sms=H100_SMS) -> int:
+    """Query rows a block of the ``wgmma`` forward owns: 128 (two consumer
+    warpgroups) when those blocks fill the ``num_sms`` SMs, else 64
+    (``csrc/attention_wg.cuh`` ``fwd_warpgroups``)."""
+    return 128 if b * n * -(-sq // 128) >= num_sms else 64
+
+
+@contextlib.contextmanager
+def mma_sync_route():
+    """Every bf16 forward and dK/dV launch inside runs the ``mma.sync``
+    kernels: the yardstick the ``wgmma`` ones are timed and checked
+    against."""
+    global _force_mma_sync
+    lib = _build.load_library()
+    lib.ptt_attention_force_mma_sync(1)
+    _force_mma_sync = True
+    try:
+        yield
+    finally:
+        lib.ptt_attention_force_mma_sync(0)
+        _force_mma_sync = False
 
 
 def supported(q_shape, k_shape=None, v_shape=None, causal=False,

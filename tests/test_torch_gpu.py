@@ -965,3 +965,148 @@ def test_decode_wrapper_splits_from_shapes_and_counts_one_launch():
         out.float(), tpa.paged_decode_split_reference(
             *args, n_split=n_split).float(), rtol=TOL["bfloat16"],
         atol=TOL["bfloat16"])
+
+
+# ------------------------------------------- attention kernels on wgmma
+
+def _kernels_run(fn, attempts=4):
+    """The names of the CUDA kernels ``fn`` launches, by the profiler;
+    profiled again while it records no device activity at all (it then
+    measured nothing)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(attempts):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        names = {e.name for e in prof.events()
+                 if e.device_type == DeviceType.CUDA}
+        if names:
+            break
+    return names
+
+
+def _attention_kernels(fn):
+    return {n for n in _kernels_run(fn)
+            if "flash_fwd_" in n or "flash_bwd_d" in n}
+
+
+def _hold_fwd_bwd(q, k, v, do, causal=True, q_offset=None):
+    """Forward and backward against their plain versions (bf16 limits of
+    the other card tests); returns the outputs."""
+    o, lse = tfa.flash_attention_fwd(q, k, v, causal=causal,
+                                     q_offset=q_offset)
+    o_ref, lse_ref = tfa.flash_attention_reference(q, k, v, causal=causal,
+                                                   q_offset=q_offset)
+    torch.testing.assert_close(o.float(), o_ref.float(), rtol=TOL["bfloat16"],
+                               atol=TOL["bfloat16"])
+    torch.testing.assert_close(lse, lse_ref, rtol=1e-4, atol=1e-4)
+    grads = tfa.flash_attention_bwd(q, k, v, o, lse, do, causal=causal,
+                                    q_offset=q_offset)
+    refs = tfa.flash_attention_bwd_reference(q, k, v, o, lse, do,
+                                             causal=causal, q_offset=q_offset)
+    for name, g, r in zip("qkv", grads, refs):
+        assert g.shape == r.shape and g.dtype == torch.bfloat16, name
+        torch.testing.assert_close(g.float(), r.float(), rtol=TOL["bfloat16"],
+                                   atol=TOL["bfloat16"], msg=f"d{name}")
+    return (o, lse) + tuple(grads)
+
+
+def _routes_taken(q, k, v, do, causal=True, q_offset=None):
+    def run():
+        o, lse = tfa.flash_attention_fwd(q, k, v, causal=causal,
+                                         q_offset=q_offset)
+        tfa.flash_attention_bwd(q, k, v, o, lse, do, causal=causal,
+                                q_offset=q_offset)
+    return _attention_kernels(run)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", [16, 32, 40, 64, 80, 128])
+def test_wgmma_attention_at_every_head_dim(d):
+    """The wgmma forward and dK/dV kernels at each head-dim instance (16,
+    32 and 64 run the D = 64 one, columns past d zero-filled by TMA) and
+    at masked d = 40 and 80, on fused-QKV views under GQA, against the
+    plain versions; the profiler shows the wgmma kernels ran (dQ stays on
+    mma.sync)."""
+    _cuda()
+    q, k, v, do = _fused_qkv_views(2, 300, 4, 2, d, 81)
+    assert tfa.kernel_route(q, k, v) == "wgmma"
+    assert tfa.kernel_route(q, k, v, do) == "wgmma"
+    _hold_fwd_bwd(q, k, v, do)
+    ran = _routes_taken(q, k, v, do)
+    assert any("flash_fwd_wg_kernel" in n for n in ran), ran
+    assert any("flash_bwd_dkv_wg_kernel" in n for n in ran), ran
+    assert not any("flash_fwd_tc_kernel" in n or "flash_bwd_dkv_tc" in n
+                   for n in ran), ran
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("nkv", [4, 2])
+@pytest.mark.parametrize("B,Sq,Sk,q_offset", [
+    (1, 1000, 1100, 100),     # the diagonal and both edges inside tiles
+    (2, 65, 65, None),        # the last 64-row tile holds one row
+    (1, 129, 129, None),      # the last 128-row (forward) tile holds one
+    (3, 1024, 1024, None)])   # 128-row forward blocks (they fill the card)
+def test_wgmma_attention_gqa_offsets_ragged(B, Sq, Sk, q_offset, nkv):
+    """GQA (8 query heads on 4 or 2 KV heads), causal with q_offset and
+    Sq != Sk, and ragged last tiles of one row, through the wgmma kernels
+    against the plain versions."""
+    dev = _cuda()
+    if Sq == Sk:
+        q, k, v, do = _fused_qkv_views(B, Sq, 8, nkv, 128, 83 + Sq)
+    else:
+        q, k, v, do = (torch.from_numpy(_rand(shape, seed)).to(
+            dev, torch.bfloat16) for shape, seed in (
+                ((B, Sq, 8, 128), 84), ((B, Sk, nkv, 128), 85),
+                ((B, Sk, nkv, 128), 86), ((B, Sq, 8, 128), 87)))
+    assert tfa.kernel_route(q, k, v, do) == "wgmma"
+    _hold_fwd_bwd(q, k, v, do, q_offset=q_offset)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B", [1, 2])
+def test_wgmma_attention_repeats_bit_for_bit(B):
+    """No atomics: two calls of the wgmma forward (64-row blocks at B = 1,
+    128-row at B = 2 with 16 heads) and of the backward give the same
+    bits."""
+    _cuda()
+    q, k, v, do = _fused_qkv_views(B, 1024, 8 * B, 2 * B, 128, 89)
+    runs = [_hold_fwd_bwd(q, k, v, do) for _ in range(2)]
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+def test_view_tma_cannot_describe_takes_mma_sync():
+    """Head dim 100 on fused views: a 200-byte head stride, which a TMA
+    tensor map cannot take, so the forward and dK/dV launches take the
+    mma.sync kernels (by the C launch's rule, mirrored in kernel_route),
+    and match the plain versions."""
+    _cuda()
+    q, k, v, do = _fused_qkv_views(2, 300, 4, 2, 100, 91)
+    assert tfa.kernel_route(q, k, v) == "mma_sync"
+    assert tfa.kernel_route(q, k, v, do) == "mma_sync"
+    _hold_fwd_bwd(q, k, v, do)
+    ran = _routes_taken(q, k, v, do)
+    assert any("flash_fwd_tc_kernel" in n for n in ran), ran
+    assert any("flash_bwd_dkv_tc_kernel" in n for n in ran), ran
+    assert not any("_wg_kernel" in n for n in ran), ran
+
+
+@pytest.mark.gpu
+def test_mma_sync_route_runs_the_parent_kernels():
+    """Inside mma_sync_route() every bf16 launch takes the mma.sync
+    kernels, which match the plain versions as the wgmma ones do; outside
+    it the rule applies again."""
+    _cuda()
+    q, k, v, do = _fused_qkv_views(2, 300, 4, 2, 128, 93)
+    with tfa.mma_sync_route():
+        assert tfa.kernel_route(q, k, v, do) == "mma_sync"
+        _hold_fwd_bwd(q, k, v, do)
+        ran = _routes_taken(q, k, v, do)
+    assert not any("_wg_kernel" in n for n in ran), ran
+    assert any("flash_bwd_dkv_tc_kernel" in n for n in ran), ran
+    assert tfa.kernel_route(q, k, v, do) == "wgmma"
+    assert any("_wg_kernel" in n for n in _routes_taken(q, k, v, do))

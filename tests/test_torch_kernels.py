@@ -189,11 +189,14 @@ def test_ctypes_signatures_match_c_entries():
 
 @pytest.mark.parametrize("tool,source", [
     ("torch_flash_bwd_stats", "flash_attention_bwd_tc.cuh"),
-    ("torch_attn_fwd_stats", "attention_fwd_tc.cuh")])
+    ("torch_flash_bwd_stats", "flash_attention_bwd_wg.cu"),
+    ("torch_attn_fwd_stats", "attention_fwd_tc.cuh"),
+    ("torch_attn_fwd_stats", "flash_attention_fwd_wg.cu")])
 def test_stats_tool_variants_apply_to_the_sources(tool, source):
     """Every source variant of the card's statistics tools replaces text
-    that the kernel source holds, so each tool builds the variant it
-    names (the tools run only on the card)."""
+    that the kernel source it names holds, so each tool builds the variant
+    it names (the tools run only on the card); each source listed here has
+    variants."""
     import importlib.util
     from pathlib import Path
     path = Path(__file__).resolve().parents[1] / "tools" / f"{tool}.py"
@@ -202,12 +205,81 @@ def test_stats_tool_variants_apply_to_the_sources(tool, source):
     spec.loader.exec_module(mod)
     text = (_build._CSRC / source).read_text()
     assert mod.VARIANTS
+    varied = 0
     for name, subs in mod.VARIANTS.items():
         variant = text
-        for old, new in subs:
+        for file, old, new in subs:
+            assert (_build._CSRC / file).exists(), (name, file)
+            if file != source:
+                continue
             assert old in variant, (name, old)
             variant = variant.replace(old, new)
-        assert variant != text, name
+        if any(file == source for file, _, _ in subs):
+            assert variant != text, name
+            varied += 1
+    assert varied, source
+
+
+def _fused_views(B, S, N, Nkv, D, dtype=torch.bfloat16, offset=0):
+    """q, k, v as slices of one [B, S, N + 2 Nkv, D + offset] tensor (their
+    columns from ``offset``), and a contiguous output gradient."""
+    qkv = torch.zeros(B, S, N + 2 * Nkv, D + offset, dtype=dtype)
+    q, k, v = qkv[..., offset:].split([N, Nkv, Nkv], dim=2)
+    return q, k, v, torch.zeros(B, S, N, D, dtype=dtype)
+
+
+ROUTE_CASES = {
+    # name: (views, forward route, dK/dV route)
+    "training_fused_qkv": (lambda: (*torch.zeros(
+        12, 1024, 3, 8, 128, dtype=torch.bfloat16).unbind(2),
+        torch.zeros(12, 1024, 8, 128, dtype=torch.bfloat16)),
+        "wgmma", "wgmma"),
+    "serving_contiguous": (lambda: tuple(torch.zeros(
+        1, 1024, 8, 128, dtype=torch.bfloat16) for _ in range(4)),
+        "wgmma", "wgmma"),
+    "gqa_masked_d80": (lambda: _fused_views(2, 300, 4, 2, 80),
+                       "wgmma", "wgmma"),
+    "masked_d40": (lambda: _fused_views(2, 300, 4, 2, 40), "wgmma", "wgmma"),
+    # a head stride of 100 elements (200 bytes): no tensor map
+    "unaligned_d100": (lambda: _fused_views(1, 64, 2, 2, 100),
+                       "mma_sync", "mma_sync"),
+    # views starting one element into their rows: base not 16-byte aligned
+    "unaligned_base": (lambda: _fused_views(1, 64, 2, 2, 64, offset=1),
+                       "mma_sync", "mma_sync"),
+    # q, k, v aligned, the output gradient not: the forward keeps wgmma
+    "unaligned_do": (lambda: (*_fused_views(1, 64, 2, 2, 64)[:3],
+                              torch.zeros(1, 64, 2, 65,
+                                          dtype=torch.bfloat16)[..., 1:]),
+                     "wgmma", "mma_sync"),
+    "float32": (lambda: _fused_views(1, 64, 2, 2, 64, torch.float32),
+                "cuda_core", "cuda_core"),
+}
+
+
+@pytest.mark.parametrize("case", sorted(ROUTE_CASES))
+def test_attention_route_from_shapes_and_strides(case):
+    """The C launches' rule, mirrored in ``kernel_route``: bf16 views that
+    TMA can describe (16-byte aligned base, strides multiples of 16 bytes)
+    take the wgmma kernels, other bf16 views the mma.sync ones, f32 the
+    CUDA-core ones; decided from the views alone."""
+    make, fwd, dkv = ROUTE_CASES[case]
+    q, k, v, do = make()
+    assert tfa.kernel_route(q, k, v) == fwd
+    assert tfa.kernel_route(q, k, v, do) == dkv
+
+
+@pytest.mark.parametrize("b,n,sq,rows", [
+    (12, 8, 1024, 128),     # the training shape: 768 blocks of 128 rows
+    (1, 8, 1024, 64),       # the serving shape: 64 such blocks < 132 SMs
+    (2, 8, 1024, 64),       # 128 blocks of 128 rows still < 132
+    (3, 8, 1024, 128),      # 192
+    (1, 8, 233, 64),
+    (1, 32, 1024, 128)])
+def test_fwd_query_tile_fills_the_card(b, n, sq, rows):
+    """The wgmma forward's query rows a block: 128 (two consumer
+    warpgroups) where those blocks fill the H100's 132 SMs, else 64."""
+    assert tfa.fwd_query_rows(b, n, sq) == rows
+    assert tfa.fwd_query_rows(b, n, sq, num_sms=10 ** 6) == 64
 
 
 # -------------------------------------------------------- flash backward

@@ -13,8 +13,9 @@ against its two plain versions (the share of max |ref| and the rms share,
 host enqueues): the flash forward at the serving shape and at the training
 shape (B = 12 on the views of one fused QKV tensor), the chunk prefill at
 its serving shape over 24 layers' pools. It does so for the tree's own
-sources ("this"), for each variant of ``csrc/attention_fwd_tc.cuh`` in
-``VARIANTS`` (text replaced in a copy) and, with ``--parent``, for another
+sources ("this"; with the mma.sync forward's times beside the wgmma
+one's), for each source variant in ``VARIANTS`` (text replaced in a copy
+of ``csrc``) and, with ``--parent``, for another
 source directory (for instance a parent commit's ``paddle_tpu_torch/csrc``,
 unpacked with ``git archive``). Each source set is built as
 ``kernels/_build.py`` builds the tree's, into
@@ -34,29 +35,31 @@ sys.path.insert(0, str(ROOT))
 
 import chip_smoke as cs  # noqa: E402
 
-# text replacements in attention_fwd_tc.cuh
+# text replacements, (source file, old, new)
+TC, WG = "attention_fwd_tc.cuh", "flash_attention_fwd_wg.cu"
 VARIANTS = {
-    # the chunk prefill through the flash forward's block (4 warps of 16
-    # rows each, S on the tensor cores) instead of its own (S on the CUDA
-    # cores in the plain version's order, 4 warps sharing 16 rows)
+    # the chunk prefill through the mma.sync flash forward's block (4 warps
+    # of 16 rows each, S on the tensor cores) instead of its own (S on the
+    # CUDA cores in the plain version's order, 4 warps sharing 16 rows)
     "prefill_on_flash": [
-        ("  attend_split<D, FULL>(p, kv);", "  attend<D, FULL>(p, kv);"),
-        ("__launch_bounds__(32 * kSplitWarps)", "__launch_bounds__(128)"),
-        ("return start(paged_prefill_tc_kernel<D, FULL>, "
+        (TC, "  attend_split<D, FULL>(p, kv);", "  attend<D, FULL>(p, kv);"),
+        (TC, "__launch_bounds__(32 * kSplitWarps)", "__launch_bounds__(128)"),
+        (TC, "return start(paged_prefill_tc_kernel<D, FULL>, "
          "split_smem_bytes<D>(), 16,\n               32 * kSplitWarps,",
          "return start("
          "paged_prefill_tc_kernel<D, FULL>, flash_smem_bytes<D>(), 64,\n"
          "               32 * kFlashWarps,")],
     # the chunk prefill's 16-row groups shared by 4 warps (16 positions of
     # S and a quarter of the head dims each) instead of 8
-    "split_4_warps": [("constexpr int kSplitWarps = 8;",
+    "split_4_warps": [(TC, "constexpr int kSplitWarps = 8;",
                        "constexpr int kSplitWarps = 4;")],
-    # the flash forward's S with each 16-deep step added in f32 on the CUDA
-    # cores (tc::mma_rn) instead of chained in the tensor cores
-    "flash_mma_rn": [("tc::mma_bf16(s[2 * np], qa,",
-                      "tc::mma_rn(s[2 * np], qa,"),
-                     ("tc::mma_bf16(s[2 * np + 1], qa,",
-                      "tc::mma_rn(s[2 * np + 1], qa,")],
+    # the wgmma flash forward with one consumer warpgroup (64 query rows a
+    # block) at every shape, or two (128 rows) at every shape, instead of
+    # choosing from the blocks the shape gives
+    "fwd_64_rows": [(WG, "const bool two = fwd_warpgroups(B, Nq, Sq, "
+                     "hop::sm_count()) == 2;", "const bool two = false;")],
+    "fwd_128_rows": [(WG, "const bool two = fwd_warpgroups(B, Nq, Sq, "
+                      "hop::sm_count()) == 2;", "const bool two = true;")],
 }
 PREFILL = dict(B=1, C=256, nh=8, d=128, ps=64, pps=16, off=768)
 
@@ -87,7 +90,7 @@ def _errors(torch, fa, pa, inputs):
     return rows
 
 
-def _times(torch, fa, pa):
+def _times(torch, fa, pa, _build):
     out = {}
     gen = torch.Generator(device="cuda").manual_seed(7)
     q, k, v = (torch.randn(1, 1024, 8, 128, device="cuda", generator=gen)
@@ -99,6 +102,12 @@ def _times(torch, fa, pa):
     tq, tk, tv = qkv.unbind(2)
     out["flash_training_ms"] = cs._time_held_ms(
         torch, lambda: fa.flash_attention_fwd(tq, tk, tv, True), 20)
+    if hasattr(_build.load_library(), "ptt_attention_force_mma_sync"):
+        with fa.mma_sync_route():   # the mma.sync forward, same call
+            out["flash_serving_mma_sync_ms"] = cs._time_held_ms(
+                torch, lambda: fa.flash_attention_fwd(q, k, v, True), 50)
+            out["flash_training_mma_sync_ms"] = cs._time_held_ms(
+                torch, lambda: fa.flash_attention_fwd(tq, tk, tv, True), 20)
     del qkv, tq, tk, tv
     p = PREFILL
     pools = [cs._prefill_case(torch, gen, "bfloat16", p["B"], p["C"],
@@ -137,9 +146,9 @@ def _measure(torch, fa, pa, _build, name, src, inputs):
     ptxas = {k: list(v) for k, v in cs._ptxas_kernels(
         _build.build_log["ptxas"]).items()
         if re.search(r"(flash_fwd|paged_prefill)\w*kernelI(13__nv_bfloat16)?"
-                     r"Li128ELb1E", k)}
+                     r"Li128E(Lb1E|Li[12]E)", k)}
     rows = _errors(torch, fa, pa, inputs)
-    times = _times(torch, fa, pa)
+    times = _times(torch, fa, pa, _build)
     over = {kind: sum(not r[kind]["ok"] for r in rows)
             for kind in ("flash", "prefill")}
     cs._log(f"{name}: " + ", ".join(f"{k} {v:.4f}" for k, v in times.items())
@@ -182,13 +191,12 @@ def main(argv=None) -> int:
         src = ROOT / "build" / "attn_fwd_stats" / f"{name}_src"
         shutil.rmtree(src, ignore_errors=True)
         shutil.copytree(own, src)
-        path = src / "attention_fwd_tc.cuh"
-        text = path.read_text()
-        for old, new in subs:
+        for file, old, new in subs:
+            path = src / file
+            text = path.read_text()
             if old not in text:
-                raise ValueError(f"variant {name}: {old!r} not in the source")
-            text = text.replace(old, new)
-        path.write_text(text)
+                raise ValueError(f"variant {name}: {old!r} not in {file}")
+            path.write_text(text.replace(old, new))
         out[name] = _measure(torch, fa, pa, _build, name, src, inputs)
     if args.parent:
         out["parent"] = _measure(torch, fa, pa, _build, "parent",

@@ -2,7 +2,7 @@
 and source variants.
 
     python3 tools/torch_flash_bwd_stats.py [--seeds 6] [--parent CSRC_DIR]
-        [--json-out PATH]
+        [--only NAME ...] [--json-out PATH]
 
 At the training shape (B = 12, S = 1024, 8 heads of 128, causal, the q/k/v
 views of one fused QKV projection), for each seed: the largest elementwise
@@ -10,7 +10,7 @@ error |g - r| / (|r| + rms(r)) and the rms error of dq, dk and dv against the
 plain backward (``chip_smoke.py``'s measures and limits), where the worst
 element sits, then the dQ and dK/dV kernels' times (CUDA events). It does so
 for the tree's own sources ("this"), for each variant of
-``csrc/flash_attention_bwd_tc.cuh`` in ``VARIANTS`` (text replaced in a copy)
+source in ``VARIANTS`` (text replaced in a copy of ``csrc``)
 and, with ``--parent``, for another source directory (for instance a parent
 commit's ``paddle_tpu_torch/csrc``, unpacked with ``git archive``). Each
 source set is built as ``kernels/_build.py`` builds the tree's, into
@@ -21,6 +21,7 @@ from __future__ import annotations
 import argparse
 import json
 import math
+import re
 import shutil
 import sys
 from pathlib import Path
@@ -32,14 +33,24 @@ sys.path.insert(0, str(ROOT))
 
 import chip_smoke as cs  # noqa: E402
 
-# text replacements in flash_attention_bwd_tc.cuh: S and dP chained in the
-# tensor cores' accumulators; 32 query columns a dK/dV sub-step; P for dV
-# rounded from S as mma_rn sums it, without the in-order sum near a tie
+# text replacements, (source file, old, new): in the wgmma dK/dV pass, S^T
+# and dP^T summed by the tensor cores 1 or 4 16-deep steps at a time
+# between f32 additions, or chained over all of D (the pass sums 2 at a
+# time); P for dV rounded without the in-order sum near a tie. In the
+# mma.sync kernels (the dQ pass), S and dP chained in the tensor cores'
+# accumulators.
+WG, TC = "flash_attention_bwd_wg.cu", "flash_attention_bwd_tc.cuh"
 VARIANTS = {
-    "chained_s_dp": [("tc::mma_rn(s[", "tc::mma_bf16(s["),
-                     ("tc::mma_rn(dp[", "tc::mma_bf16(dp[")],
-    "kqs32": [("constexpr int kQS = 16;", "constexpr int kQS = 32;")],
-    "no_tie_guard": [("if (__any_sync(0xffffffffu, near)) {", "if (false) {")],
+    "sdp_steps_1": [(WG, "constexpr int kSdPSteps = 2;",
+                     "constexpr int kSdPSteps = 1;")],
+    "sdp_steps_4": [(WG, "constexpr int kSdPSteps = 2;",
+                     "constexpr int kSdPSteps = 4;")],
+    "sdp_chained": [(WG, "constexpr int kSdPSteps = 2;",
+                     "constexpr int kSdPSteps = 8;")],
+    "no_tie_guard": [(WG, "if (__any_sync(0xffffffffu, tie < 2 * "
+                      "tc::kTieMargin)) {", "if (false) {")],
+    "tc_chained_s_dp": [(TC, "tc::mma_rn(s[", "tc::mma_bf16(s["),
+                        (TC, "tc::mma_rn(dp[", "tc::mma_bf16(dp[")],
 }
 B, S, N, D = cs.TRAIN_B, cs.TRAIN_S, 8, 128
 
@@ -72,8 +83,8 @@ def _measure(torch, fa, _build, name, src, inputs):
     _build._lib = None
     _build.build(force=True)
     ptxas = {k: v for k, v in cs._ptxas_kernels(
-        _build.build_log["ptxas"]).items() if "ILi128ELb1E" in k
-        and "flash_bwd_d" in k}
+        _build.build_log["ptxas"]).items()
+        if re.search(r"flash_bwd_d\w*kernelILi128E(Lb1E)?E", k)}
     elem_tol, rms_tol = cs.GRAD_TOL["flash_bwd", "bfloat16"]
     seeds = []
     for seed, (args, refs) in enumerate(inputs):
@@ -96,15 +107,23 @@ def _measure(torch, fa, _build, name, src, inputs):
         q, k, v, o, lse, do, True, scale, 0), 20)
     dkv_ms = cs._time_ms(torch, lambda: fa._launch_dkv(
         q, k, v, do, lse, delta, True, scale, 0), 20)
+    mma_ms = None
+    if hasattr(_build.load_library(), "ptt_attention_force_mma_sync"):
+        with fa.mma_sync_route():   # the mma.sync dK/dV kernel, same call
+            mma_ms = cs._time_ms(torch, lambda: fa._launch_dkv(
+                q, k, v, do, lse, delta, True, scale, 0), 20)
     over = {g: sum(not s[g]["ok"] for s in seeds) for g in ("dq", "dk", "dv")}
-    cs._log(f"{name}: dq {dq_ms:.4f} ms, dkv {dkv_ms:.4f} ms; seeds over a "
+    cs._log(f"{name}: dq {dq_ms:.4f} ms, dkv {dkv_ms:.4f} ms"
+            + ("" if mma_ms is None else f" (mma.sync dkv {mma_ms:.4f} ms)")
+            + "; seeds over a "
             f"limit (of {len(seeds)}): {over}; max rms " + ", ".join(
                 f"{g} {max(s[g]['rms'] for s in seeds):.3e}"
                 for g in ("dq", "dk", "dv"))
             + "; ptxas (D = 128): " + ", ".join(
                 f"{'dq' if 'dq_' in k else 'dkv'} {v[0]} regs, spills "
                 f"{v[1]}/{v[2]} B" for k, v in sorted(ptxas.items())))
-    return dict(seeds=seeds, dq_ms=dq_ms, dkv_ms=dkv_ms, over=over,
+    return dict(seeds=seeds, dq_ms=dq_ms, dkv_ms=dkv_ms,
+                dkv_mma_sync_ms=mma_ms, over=over,
                 ptxas_d128={k: list(v) for k, v in ptxas.items()})
 
 
@@ -112,6 +131,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seeds", type=int, default=6)
     ap.add_argument("--parent", help="another csrc directory to measure")
+    ap.add_argument("--only", nargs="*", help="the variants to measure "
+                    "(default: all)")
     ap.add_argument("--json-out")
     args = ap.parse_args(argv)
     import torch
@@ -126,16 +147,17 @@ def main(argv=None) -> int:
     inputs = [_inputs(torch, fa, seed) for seed in range(args.seeds)]
     out = {"this": _measure(torch, fa, _build, "this", own, inputs)}
     for name, subs in VARIANTS.items():
+        if args.only is not None and name not in args.only:
+            continue
         src = ROOT / "build" / "flash_bwd_stats" / f"{name}_src"
         shutil.rmtree(src, ignore_errors=True)
         shutil.copytree(own, src)
-        path = src / "flash_attention_bwd_tc.cuh"
-        text = path.read_text()
-        for old, new in subs:
+        for file, old, new in subs:
+            path = src / file
+            text = path.read_text()
             if old not in text:
-                raise ValueError(f"variant {name}: {old!r} not in the source")
-            text = text.replace(old, new)
-        path.write_text(text)
+                raise ValueError(f"variant {name}: {old!r} not in {file}")
+            path.write_text(text.replace(old, new))
         out[name] = _measure(torch, fa, _build, name, src, inputs)
     if args.parent:
         out["parent"] = _measure(torch, fa, _build, "parent", args.parent,
