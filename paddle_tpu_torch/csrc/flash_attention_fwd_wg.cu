@@ -12,8 +12,9 @@
 // positions, the tiles walked in order; P = exp(S - m) rounded to bf16
 // only as the A operand of P V, while l sums the unrounded P; O = acc /
 // max(l, 1e-30), rounded once; LSE = m + log l in f32. P is computed as
-// 2^(S log2(e) - m log2(e)) by one ex2.approx (2 ulps; expf cost 13% of
-// the training shape's time, PERF.md), LSE as (m log2(e) + log2 l) ln 2.
+// 2^(S log2(e) - m log2(e)) by one FMA and one ex2.approx (2 ulps; expf
+// cost 13% of the training shape's time, PERF.md), LSE as
+// (m log2(e) + log2 l) ln 2.
 // GQA: query head h reads KV head h / (Nq / Nkv).
 //
 // What bounds it on an H100 (bf16 tensor cores 989 TFLOP/s, HBM 3.35
@@ -100,10 +101,9 @@ __device__ __forceinline__ void fwd_consumer(const attn_fwd_tc::FwdParams& p,
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[i][e] = 0.f;
   // this thread's rows: w0 + g (index 0) and w0 + g + 8 (index 1); m is
-  // the running max of S log2(e), the base-2 logits pl.scale gives
+  // the running max of the base-2 logits S scale2
   float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
-  attn_fwd_tc::FwdParams pl = p;
-  pl.scale = p.scale * kLog2e;
+  const float scale2 = p.scale * kLog2e;
 
   // S of tile j = Q K_j^T (64 rows x 128 positions), chained over D in the
   // f32 accumulators: issued, not waited for
@@ -135,30 +135,47 @@ __device__ __forceinline__ void fwd_consumer(const attn_fwd_tc::FwdParams& p,
   auto softmax = [&](float (&s)[kBK / 8][4], int j, float (&corr)[2]) {
     const int k0 = j * kBK;
     const bool edge = (p.causal && k0 + kBK - 1 > pos0) || k0 + kBK > kv_end;
-    float mx[2], ps[2];
-    attn_fwd_tc::scale_mask_max<kBK / 8>(s, pl, k0, 0, pos0, kv_end, edge, g,
-                                         t, mx);
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const float m_new = fmaxf(m[r], mx[r]);
-      corr[r] = ex2(m[r] - m_new);
-      m[r] = m_new;
-    }
-    ps[0] = ps[1] = 0.f;
+    // the row maxima of the unscaled S (-1e30 where masked), two partial
+    // maxima and sums a row so that their chains run side by side; the
+    // scale (> 0) keeps the order, so max(S) scale2 = max(S scale2)
+    float mx[2][2] = {{kNegInf, kNegInf}, {kNegInf, kNegInf}};
 #pragma unroll
     for (int nt = 0; nt < kBK / 8; ++nt) {
 #pragma unroll
-      for (int e = 0; e < 4; ++e) s[nt][e] = ex2(s[nt][e] - m[e >> 1]);
-      ps[0] += s[nt][0] + s[nt][1];
-      ps[1] += s[nt][2] + s[nt][3];
+      for (int e = 0; e < 4; ++e) {
+        if (edge) {
+          const int col = k0 + nt * 8 + 2 * t + (e & 1);
+          if ((p.causal && col > pos0 + g + (e >> 1) * 8) || col >= kv_end)
+            s[nt][e] = kNegInf;
+        }
+        mx[e >> 1][nt & 1] = fmaxf(mx[e >> 1][nt & 1], s[nt][e]);
+      }
     }
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
-      ps[r] += __shfl_xor_sync(0xffffffffu, ps[r], 1);
-      ps[r] += __shfl_xor_sync(0xffffffffu, ps[r], 2);
+      float x = fmaxf(mx[r][0], mx[r][1]);
+      x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+      x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+      const float m_new = fmaxf(m[r], x * scale2);
+      corr[r] = ex2(m[r] - m_new);
+      m[r] = m_new;
+    }
+    float ps[2][2] = {{0.f, 0.f}, {0.f, 0.f}};
+#pragma unroll
+    for (int nt = 0; nt < kBK / 8; ++nt) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        s[nt][e] = ex2(fmaf(s[nt][e], scale2, -m[e >> 1]));
+      ps[0][nt & 1] += s[nt][0] + s[nt][1];
+      ps[1][nt & 1] += s[nt][2] + s[nt][3];
     }
 #pragma unroll
-    for (int r = 0; r < 2; ++r) l[r] = corr[r] * l[r] + ps[r];
+    for (int r = 0; r < 2; ++r) {
+      float x = ps[r][0] + ps[r][1];
+      x += __shfl_xor_sync(0xffffffffu, x, 1);
+      x += __shfl_xor_sync(0xffffffffu, x, 2);
+      l[r] = corr[r] * l[r] + x;
+    }
   };
   // P rounded to bf16 straight from S's fragments: the A operands of the
   // 8 16-deep steps of P V

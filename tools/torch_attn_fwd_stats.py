@@ -60,6 +60,15 @@ VARIANTS = {
                      "hop::sm_count()) == 2;", "const bool two = false;")],
     "fwd_128_rows": [(WG, "const bool two = fwd_warpgroups(B, Nq, Sq, "
                       "hop::sm_count()) == 2;", "const bool two = true;")],
+    # the wgmma flash forward with a ring of two K/V stages instead of 3
+    "fwd_2_stages": [(WG, "constexpr int kStages = 3;",
+                      "constexpr int kStages = 2;")],
+    # a bound, not a kernel: the wgmma flash forward without its softmax
+    # (P = S, wrong results), to show what the softmax costs
+    "fwd_no_softmax": [(WG, "  softmax(s, 0, corr);",
+                        "  corr[0] = corr[1] = 1.f;"),
+                       (WG, "    softmax(s, j, corr);",
+                        "    corr[0] = corr[1] = 1.f;")],
 }
 PREFILL = dict(B=1, C=256, nh=8, d=128, ps=64, pps=16, off=768)
 
