@@ -343,8 +343,8 @@ def _flash_case(torch, fa, dt, q, k, v, off, label):
 def _kernel_names(torch, fn, calls=3, attempts=4):
     """The names of the kernels ``fn`` launches, by the profiler over a
     few calls; profiled again, up to ``attempts`` times in all, while the
-    profiler records no device activity at all (it then measured nothing:
-    seen on the card's machine for two profiles in a row, PR 10 call 18)."""
+    profiler records no device activity at all (it then measured nothing;
+    the card's machine has shown that for two profiles in a row)."""
     def run():
         for _ in range(calls):
             fn()
