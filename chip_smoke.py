@@ -103,6 +103,7 @@ that one JSON object holds the per-kernel numbers (eight kernels).
 from __future__ import annotations
 
 import argparse
+import contextlib
 import copy
 import json
 import math
@@ -322,22 +323,34 @@ def phase_build(res):
 
 # ----------------------------------------------------------------- phase 2
 
-def _flash_case(torch, fa, dt, q, k, v, off, label):
+def _flash_case(torch, fa, dt, q, k, v, off, label, mma_sync=False):
     """The flash forward against its plain version on ``q, k, v`` (causal,
-    ``q_offset`` ``off``): returns the largest error."""
-    o, lse = fa.flash_attention_fwd(q, k, v, causal=True, q_offset=off)
-    torch.cuda.synchronize()
+    ``q_offset`` ``off``), on the route the views take and, with
+    ``mma_sync``, again on the ``mma.sync`` kernel against the same plain
+    outputs: returns the largest error."""
     o_ref, lse_ref = fa.flash_attention_reference(q, k, v, causal=True,
                                                   q_offset=off)
-    err, bias, ok = _check("flash", o, o_ref, dt)
-    lse_err = (lse - lse_ref).abs().max().item()
-    ok = ok and lse_err <= 1e-3
-    _log(f"flash_attention_fwd {dt} {label} causal: max_abs_err={err:.3e} "
-         f"bias={bias:.2e} ({_tol_text('flash', dt)}) lse_err={lse_err:.3e} "
-         f"{'ok' if ok else 'FAIL'}")
-    if not ok:
-        raise AssertionError(f"flash kernel disagrees at {dt} {label}")
-    return err
+    routes = [(fa.kernel_route(q, k, v), contextlib.nullcontext)]
+    if mma_sync:
+        routes.append(("mma_sync", fa._mma_sync_route))
+    worst = 0.0
+    for route, ctx in routes:
+        with ctx():
+            o, lse = fa.flash_attention_fwd(q, k, v, causal=True,
+                                            q_offset=off)
+        torch.cuda.synchronize()
+        err, bias, ok = _check("flash", o, o_ref, dt)
+        lse_err = (lse - lse_ref).abs().max().item()
+        ok = ok and lse_err <= 1e-3
+        _log(f"flash_attention_fwd {dt} {label} causal, {route} route: "
+             f"max_abs_err={err:.3e} bias={bias:.2e} "
+             f"({_tol_text('flash', dt)}) lse_err={lse_err:.3e} "
+             f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"flash kernel disagrees at {dt} {label} "
+                                 f"({route} route)")
+        worst = max(worst, err)
+    return worst
 
 
 def _kernel_names(torch, fn, calls=3, attempts=4):
@@ -383,18 +396,18 @@ FLASH_DKV_KERNELS = dict(wgmma="flash_bwd_dkv_wg_kernel",
 def _route_cases(torch, fa, views, launch):
     """``launch(*views)`` on bf16 main-path views (``views``: the training
     shape's fused-QKV views at B = 1), the same under
-    ``fa.mma_sync_route()``, in f32, and on a bf16 view TMA cannot
+    ``fa._mma_sync_route()``, in f32, and on a bf16 view TMA cannot
     describe (head dim 100: a 200-byte head stride), each with the route
     ``fa.kernel_route`` names for it."""
     def under_mma_sync():
-        with fa.mma_sync_route():
+        with fa._mma_sync_route():
             launch(*views)
     odd = torch.randn(1, 256, len(views) + 1, 1, 100, device="cuda").to(
         torch.bfloat16).unbind(2)[:len(views)]
     f32 = [t.float() for t in views]
     cases = {"bf16 main-path views": (lambda: launch(*views),
                                       fa.kernel_route(*views)),
-             "bf16 under mma_sync_route": (under_mma_sync, "mma_sync"),
+             "bf16 under _mma_sync_route": (under_mma_sync, "mma_sync"),
              "f32": (lambda: launch(*f32), fa.kernel_route(*f32)),
              "bf16 head dim 100": (lambda: launch(*odd),
                                    fa.kernel_route(*odd))}
@@ -404,6 +417,21 @@ def _route_cases(torch, fa, views, launch):
             raise AssertionError(f"kernel_route gives {route} for {label}, "
                                  f"not {want[label]}")
     return cases
+
+
+def _fwd_rows_launched(torch, fa, q, k, v):
+    """The query rows a block of the wgmma forward owned in a launch on
+    ``q, k, v``: 64 times its consumer warpgroups, the second template
+    argument of the kernel the profiler saw (``flash_fwd_wg_kernel<D,
+    NC>``)."""
+    names = _kernel_names(torch, lambda: fa.flash_attention_fwd(q, k, v,
+                                                                True))
+    found = {int(m.group(1)) for m in (
+        re.search(r"flash_fwd_wg_kernel<\d+, (\d+)>", n) for n in names)
+        if m}
+    if len(found) != 1:
+        raise AssertionError(f"no single wgmma forward among {names}")
+    return 64 * found.pop()
 
 
 def phase_flash(torch, res):
@@ -432,12 +460,27 @@ def phase_flash(torch, res):
         q = randn(b, sq, n, d).to(dtype)
         k = randn(b, sk, nkv, d).to(dtype)
         v = randn(b, sk, nkv, d).to(dtype)
+        serving = (dt, sq, n, d) == ("bfloat16", 1024, 8, 128)
         err = _flash_case(torch, fa, dt, q, k, v, off,
                           f"B={b} Sq={sq} Sk={sk} nh={n} nkv={nkv} d={d} "
-                          f"q_offset={off}")
+                          f"q_offset={off}", mma_sync=serving)
         worst[dt] = max(worst.get(dt, 0.0), err)
-        if (dt, sq, n, d) == ("bfloat16", 1024, 8, 128):
+        if serving:
             main = (q, k, v, err)
+    # views TMA cannot describe (head dim 100: a 200-byte head stride),
+    # which take the mma.sync kernel: the views of a fused [B, S, 3, N, D]
+    # and, under GQA, of a fused [B, S, N + 2 Nkv, D] projection
+    for n, nkv, off, sk in ((8, 8, None, 512), (8, 4, 256, 768)):
+        fused = randn(1, sk, n + 2 * nkv, 100).to(torch.bfloat16)
+        q, k, v = fused.split([n, nkv, nkv], dim=2)
+        q = q[:, sk - 512:] if off is not None else q
+        if fa.kernel_route(q, k, v) != "mma_sync":
+            raise AssertionError("head dim 100 views do not route to the "
+                                 "mma.sync forward")
+        worst["bfloat16"] = max(worst["bfloat16"], _flash_case(
+            torch, fa, "bfloat16", q, k, v, off,
+            f"B=1 Sq=512 Sk={sk} nh={n} nkv={nkv} d=100 q_offset={off}, "
+            f"views of a fused QKV (200-byte head stride)"))
     # the training shape, on the q/k/v views of one fused [B, S, 3, N, D]
     # projection as gpt_block passes them
     tb, ts, tn, td = TRAIN_B, TRAIN_S, 8, 128
@@ -446,7 +489,7 @@ def phase_flash(torch, res):
     worst["bfloat16"] = max(worst["bfloat16"], _flash_case(
         torch, fa, "bfloat16", tq, tk, tv, None,
         f"B={tb} S={ts} nh={tn} d={td}, strided q/k/v views of a fused QKV "
-        f"(the training shape)"))
+        f"(the training shape)", mma_sync=True))
     # no atomics: a second call gives the same bits
     first = fa.flash_attention_fwd(tq, tk, tv, True)
     second = fa.flash_attention_fwd(tq, tk, tv, True)
@@ -470,13 +513,20 @@ def phase_flash(torch, res):
     # less time than the wrapper's host issue
     sdpa = torch.nn.functional.scaled_dot_product_attention
     timings = {}
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     for label, (q, k, v) in (("serving", main[:3]),
                              ("training", (tq, tk, tv))):
         b, s, n, d = q.shape
+        rows = _fwd_rows_launched(torch, fa, q, k, v)
+        _log(f"flash_attention_fwd bf16 {label} shape: the launch took "
+             f"{rows} query rows a block, fwd_query_rows on {sms} SMs "
+             f"{fa.fwd_query_rows(b, n, s, sms)}")
+        if rows != fa.fwd_query_rows(b, n, s, sms):
+            raise AssertionError("fwd_query_rows disagrees with the launch")
         ms = _time_held_ms(
             torch, lambda: fa.flash_attention_fwd(q, k, v, True),
             50 if b == 1 else 20)
-        with fa.mma_sync_route():    # the parent's kernel, in this call
+        with fa._mma_sync_route():   # the parent's kernel, in this call
             mma_ms = _time_held_ms(
                 torch, lambda: fa.flash_attention_fwd(q, k, v, True),
                 50 if b == 1 else 20)
@@ -501,12 +551,13 @@ def phase_flash(torch, res):
                               tflops=flops / ms / 1e9, gflop=flops / 1e9,
                               mbytes=nbytes / 1e6, mma_sync_ms=mma_ms,
                               mma_sync_tflops=flops / mma_ms / 1e9,
-                              query_rows=fa.fwd_query_rows(b, n, s), **extra)
+                              query_rows=rows, **extra)
         views = (f", sdpa on the same strided views "
                  f"{extra['library_views_ms']:.4f} ms" if extra else "")
         _log(f"flash_attention_fwd bf16 {label} shape B={b} S={s} nh={n} "
-             f"d={d} causal: wgmma kernel ({fa.fwd_query_rows(b, n, s)} "
-             f"query rows a block) {ms:.4f} ms ({flops / ms / 1e9:.1f} "
+             f"d={d} causal: wgmma kernel "
+             f"({timings[label]['query_rows']} query rows a block, {sms} "
+             f"SMs) {ms:.4f} ms ({flops / ms / 1e9:.1f} "
              f"TFLOP/s), the mma.sync kernel {mma_ms:.4f} ms "
              f"({flops / mma_ms / 1e9:.1f} TFLOP/s), plain {plain_ms:.4f} "
              f"ms, sdpa (contiguous "
@@ -719,10 +770,25 @@ def phase_flash_bwd(torch, res):
                   (dt, 1, 256, 768, 8, 8, 128, 512)]
     # a masked head dim of the 128 instance: columns 80..127 zero-filled
     cases.append(("bfloat16", 1, 512, 512, 8, 4, 80, None))
-    for dt, b, sq, sk, n, nkv, d, off in cases:
+    cases = [(c, False) for c in cases]
+    # views TMA cannot describe (head dim 100: a 200-byte head stride),
+    # which take the mma.sync dK/dV kernel: the views of a fused
+    # [B, S, 3, N, D] and, under GQA, of a fused [B, S, N + 2 Nkv, D]
+    # projection
+    cases += [(("bfloat16", 1, 512, 512, 8, 8, 100, None), True),
+              (("bfloat16", 1, 512, 768, 8, 4, 100, 256), True)]
+    for (dt, b, sq, sk, n, nkv, d, off), fused in cases:
         dtype = getattr(torch, dt)
-        q, do = (randn(b, sq, n, d).to(dtype) for _ in range(2))
-        k, v = (randn(b, sk, nkv, d).to(dtype) for _ in range(2))
+        if fused:
+            q, k, v = randn(b, sk, n + 2 * nkv, d).to(dtype).split(
+                [n, nkv, nkv], dim=2)
+            q, do = q[:, sk - sq:], randn(b, sq, n, d).to(dtype)
+            if fa.kernel_route(q, k, v, do) != "mma_sync":
+                raise AssertionError("head dim 100 views do not route to "
+                                     "the mma.sync dK/dV pass")
+        else:
+            q, do = (randn(b, sq, n, d).to(dtype) for _ in range(2))
+            k, v = (randn(b, sk, nkv, d).to(dtype) for _ in range(2))
         o, lse = fa.flash_attention_fwd(q, k, v, True, q_offset=off)
         n0 = (fa.dq_launches, fa.dkv_launches)
         got = fa.flash_attention_bwd(q, k, v, o, lse, do, True, q_offset=off)
@@ -732,7 +798,8 @@ def phase_flash_bwd(torch, res):
         refs = fa.flash_attention_bwd_reference(q, k, v, o, lse, do, True,
                                                 q_offset=off)
         label = (f"flash_attention_bwd {dt} B={b} Sq={sq} Sk={sk} nh={n} "
-                 f"nkv={nkv} d={d} causal q_offset={off}")
+                 f"nkv={nkv} d={d} causal q_offset={off}, "
+                 f"{fa.kernel_route(q, k, v, do)} route")
         _log(label)
         _check_grads("kernels vs plain", "flash_bwd", dt, got, refs)
 
@@ -776,6 +843,14 @@ def phase_flash_bwd(torch, res):
          f"the same views (the training shape)")
     errs = _check_grads("kernels vs plain", "flash_bwd", "bfloat16", got,
                         refs)
+    # the mma.sync dK/dV kernel (timed below as the parent's) on the same
+    # inputs, against the same plain outputs
+    with fa._mma_sync_route():
+        got_mma = fa.flash_attention_bwd(q, k, v, o, lse, do, True)
+    _log("  the same under the mma.sync route (the mma.sync dK/dV kernel)")
+    _check_grads("mma.sync kernels vs plain", "flash_bwd", "bfloat16",
+                 got_mma, refs)
+    del got_mma
     # no atomics: a second call gives the same bits, also under GQA on the
     # views of one fused [B, S, N + 2 Nkv, D] projection
     again = fa.flash_attention_bwd(q, k, v, o, lse, do, True)
@@ -824,7 +899,7 @@ def phase_flash_bwd(torch, res):
         q, k, v, o, lse, do, True, scale, 0), 20)
     dkv_ms = _time_ms(torch, lambda: fa._launch_dkv(
         q, k, v, do, lse, delta, True, scale, 0), 20)
-    with fa.mma_sync_route():        # the parent's dK/dV kernel, this call
+    with fa._mma_sync_route():       # the parent's dK/dV kernel, this call
         dkv_mma_ms = _time_ms(torch, lambda: fa._launch_dkv(
             q, k, v, do, lse, delta, True, scale, 0), 20)
     plain_ms = _time_ms(torch, lambda: fa.flash_attention_bwd_reference(

@@ -11,8 +11,9 @@
 // rule reads shapes and strides only and never a failed launch; the
 // Python mirror is kernels/flash_attention.py::kernel_route. f32 keeps the
 // CUDA-core kernels. ptt_attention_force_mma_sync(1) sends every bf16
-// launch to the mma.sync kernels (the yardstick the smoke and the tools
-// time the wgmma kernels against), (0) restores the rule.
+// launch to the mma.sync kernels (the yardstick the smoke, the card tests
+// and the tools hold the wgmma kernels against; no launch of the program
+// sets it), (0) restores the rule, (-1) reads it.
 #pragma once
 
 #include <cuda_runtime.h>

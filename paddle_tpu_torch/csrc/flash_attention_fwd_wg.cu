@@ -362,8 +362,9 @@ cudaError_t launch_fwd(const void* q, const void* k, const void* v, void* o,
 }  // namespace ptt
 
 // every bf16 attention launch on the mma.sync kernels (1), or routed by
-// shapes and strides (0): attention_wg.cuh
+// shapes and strides (0): attention_wg.cuh. -1 leaves the flag as it is.
+// Returns the flag.
 extern "C" int ptt_attention_force_mma_sync(int on) {
-  ptt::attn_wg::force_mma_sync = on != 0;
-  return 0;
+  if (on >= 0) ptt::attn_wg::force_mma_sync = on != 0;
+  return ptt::attn_wg::force_mma_sync;
 }

@@ -74,7 +74,7 @@ _SIGNATURES = {
     "ptt_moe_combine": [_P, _P, _P, _P,                      # eo val comb y
                         _I, _I, _I, _I, _I, _I,              # dtype S M K EC vec
                         _P],                                 # stream
-    "ptt_attention_force_mma_sync": [_I],                    # on
+    "ptt_attention_force_mma_sync": [_I],                    # on (-1 reads)
 }
 
 
@@ -174,10 +174,6 @@ def load_library() -> ctypes.CDLL:
         if _lib is None:
             lib = ctypes.CDLL(str(build()))
             for name, argtypes in _SIGNATURES.items():
-                if not hasattr(lib, name):
-                    # a library built from an older tree's sources (the
-                    # statistics tools' --parent) lacks the newer entries
-                    continue
                 fn = getattr(lib, name)
                 fn.argtypes = argtypes
                 fn.restype = ctypes.c_int

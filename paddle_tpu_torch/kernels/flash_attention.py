@@ -42,7 +42,7 @@ from . import _build
 __all__ = ["flash_attention", "flash_attention_bshd", "flash_attention_fwd",
            "flash_attention_bwd", "flash_attention_reference",
            "flash_attention_bwd_reference", "supported", "kernel_route",
-           "fwd_query_rows", "mma_sync_route"]
+           "fwd_query_rows"]
 
 MIN_SEQ = 64                 # the JAX gate's MIN_BLOCK // 2 profit threshold
 _NEG_INF = -1e30
@@ -55,7 +55,6 @@ dq_launches = 0
 dkv_launches = 0
 
 
-_force_mma_sync = False
 H100_SMS = 132
 
 
@@ -72,10 +71,12 @@ def kernel_route(*views) -> str:
     ``q, k, v, do`` takes, by the C launch's rule (``csrc/attention_wg.cuh``
     ``takes``): ``"cuda_core"`` for f32; for bf16 ``"wgmma"`` where TMA can
     describe every view, else ``"mma_sync"`` (also inside
-    :func:`mma_sync_route`)."""
+    :func:`_mma_sync_route`, a flag the loaded library holds)."""
     if views[0].dtype != torch.bfloat16:
         return "cuda_core"
-    if _force_mma_sync or not all(_tma_view(t) for t in views):
+    lib = _build._lib          # no library loaded: the flag cannot be set
+    if (lib is not None and lib.ptt_attention_force_mma_sync(-1)) \
+            or not all(_tma_view(t) for t in views):
         return "mma_sync"
     return "wgmma"
 
@@ -88,19 +89,17 @@ def fwd_query_rows(b, n, sq, num_sms=H100_SMS) -> int:
 
 
 @contextlib.contextmanager
-def mma_sync_route():
+def _mma_sync_route():
     """Every bf16 forward and dK/dV launch inside runs the ``mma.sync``
     kernels: the yardstick the ``wgmma`` ones are timed and checked
-    against."""
-    global _force_mma_sync
+    against by ``chip_smoke.py``, the card tests and the statistics
+    tools. No launch of the program sets it."""
     lib = _build.load_library()
     lib.ptt_attention_force_mma_sync(1)
-    _force_mma_sync = True
     try:
         yield
     finally:
         lib.ptt_attention_force_mma_sync(0)
-        _force_mma_sync = False
 
 
 def supported(q_shape, k_shape=None, v_shape=None, causal=False,

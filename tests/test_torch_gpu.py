@@ -6,6 +6,8 @@ has only PyTorch; there, skip the repository's conftest (which sets JAX up):
 
     python -m pytest tests/test_torch_gpu.py -m gpu --noconftest -q
 """
+import re
+
 import numpy as np
 import pytest
 import torch
@@ -1066,6 +1068,22 @@ def test_wgmma_attention_gqa_offsets_ragged(B, Sq, Sk, q_offset, nkv):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("B,N", [(1, 8), (12, 8), (1, 16), (2, 16)])
+def test_fwd_query_rows_matches_the_launch(B, N):
+    """fwd_query_rows, given the card's SM count, names the query tile the
+    C launch chose: 64 rows a consumer warpgroup, the second template
+    argument of the wgmma forward the profiler saw."""
+    _cuda()
+    q, k, v, _ = _fused_qkv_views(B, 1024, N, N, 128, 95)
+    names = _kernels_run(lambda: tfa.flash_attention_fwd(q, k, v, True))
+    groups = {int(m.group(1)) for m in (
+        re.search(r"flash_fwd_wg_kernel<\d+, (\d+)>", n) for n in names)
+        if m}
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    assert groups == {tfa.fwd_query_rows(B, N, 1024, sms) // 64}, names
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("B", [1, 2])
 def test_wgmma_attention_repeats_bit_for_bit(B):
     """No atomics: two calls of the wgmma forward (64-row blocks at B = 1,
@@ -1097,12 +1115,12 @@ def test_view_tma_cannot_describe_takes_mma_sync():
 
 @pytest.mark.gpu
 def test_mma_sync_route_runs_the_parent_kernels():
-    """Inside mma_sync_route() every bf16 launch takes the mma.sync
+    """Inside _mma_sync_route() every bf16 launch takes the mma.sync
     kernels, which match the plain versions as the wgmma ones do; outside
     it the rule applies again."""
     _cuda()
     q, k, v, do = _fused_qkv_views(2, 300, 4, 2, 128, 93)
-    with tfa.mma_sync_route():
+    with tfa._mma_sync_route():
         assert tfa.kernel_route(q, k, v, do) == "mma_sync"
         _hold_fwd_bwd(q, k, v, do)
         ran = _routes_taken(q, k, v, do)

@@ -24,6 +24,7 @@ unpacked with ``git archive``). Each source set is built as
 from __future__ import annotations
 
 import argparse
+import ctypes
 import json
 import re
 import shutil
@@ -99,7 +100,7 @@ def _errors(torch, fa, pa, inputs):
     return rows
 
 
-def _times(torch, fa, pa, _build):
+def _times(torch, fa, pa, mma_sync):
     out = {}
     gen = torch.Generator(device="cuda").manual_seed(7)
     q, k, v = (torch.randn(1, 1024, 8, 128, device="cuda", generator=gen)
@@ -111,8 +112,8 @@ def _times(torch, fa, pa, _build):
     tq, tk, tv = qkv.unbind(2)
     out["flash_training_ms"] = cs._time_held_ms(
         torch, lambda: fa.flash_attention_fwd(tq, tk, tv, True), 20)
-    if hasattr(_build.load_library(), "ptt_attention_force_mma_sync"):
-        with fa.mma_sync_route():   # the mma.sync forward, same call
+    if mma_sync:
+        with fa._mma_sync_route():   # the mma.sync forward, same call
             out["flash_serving_mma_sync_ms"] = cs._time_held_ms(
                 torch, lambda: fa.flash_attention_fwd(q, k, v, True), 50)
             out["flash_training_mma_sync_ms"] = cs._time_held_ms(
@@ -147,17 +148,35 @@ def _short(mangled):
     return f"{name}<{args.group(1)}>" if args else name
 
 
+def _load_older(_build, entries):
+    """Load the library built from another tree's sources (``--parent``)
+    as the wrappers' library, with the C signatures of the ``entries``
+    this tool launches set as this tree's; the other tree may lack this
+    tree's newer entries."""
+    lib = ctypes.CDLL(str(_build.library_path()))
+    for entry in entries:
+        fn = getattr(lib, entry)
+        fn.argtypes = _build._SIGNATURES[entry]
+        fn.restype = ctypes.c_int
+    lib.ptt_error_string.argtypes = [ctypes.c_int]
+    lib.ptt_error_string.restype = ctypes.c_char_p
+    _build._lib = lib
+
+
 def _measure(torch, fa, pa, _build, name, src, inputs):
     _build._CSRC = Path(src).resolve()
     _build._BUILD_DIR = ROOT / "build" / "attn_fwd_stats" / name
     _build._lib = None
     _build.build(force=True)
+    if name == "parent":
+        _load_older(_build, ("ptt_flash_attention_fwd",
+                             "ptt_paged_attention_prefill"))
     ptxas = {k: list(v) for k, v in cs._ptxas_kernels(
         _build.build_log["ptxas"]).items()
         if re.search(r"(flash_fwd|paged_prefill)\w*kernelI(13__nv_bfloat16)?"
                      r"Li128E(Lb1E|Li[12]E)", k)}
     rows = _errors(torch, fa, pa, inputs)
-    times = _times(torch, fa, pa, _build)
+    times = _times(torch, fa, pa, mma_sync=name != "parent")
     over = {kind: sum(not r[kind]["ok"] for r in rows)
             for kind in ("flash", "prefill")}
     cs._log(f"{name}: " + ", ".join(f"{k} {v:.4f}" for k, v in times.items())

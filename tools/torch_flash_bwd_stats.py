@@ -19,6 +19,7 @@ source set is built as ``kernels/_build.py`` builds the tree's, into
 from __future__ import annotations
 
 import argparse
+import ctypes
 import json
 import math
 import re
@@ -77,11 +78,29 @@ def _where(g, r):
     return row, head, float(r.flatten()[i].abs() / rms)
 
 
+def _load_older(_build):
+    """Load the library built from another tree's sources (``--parent``)
+    as the wrappers' library, with this tree's C signatures set for the
+    three flash entries this tool launches; the other tree may lack this
+    tree's newer entries."""
+    lib = ctypes.CDLL(str(_build.library_path()))
+    for entry in ("ptt_flash_attention_fwd", "ptt_flash_attention_bwd_dq",
+                  "ptt_flash_attention_bwd_dkv"):
+        fn = getattr(lib, entry)
+        fn.argtypes = _build._SIGNATURES[entry]
+        fn.restype = ctypes.c_int
+    lib.ptt_error_string.argtypes = [ctypes.c_int]
+    lib.ptt_error_string.restype = ctypes.c_char_p
+    _build._lib = lib
+
+
 def _measure(torch, fa, _build, name, src, inputs):
     _build._CSRC = Path(src).resolve()
     _build._BUILD_DIR = ROOT / "build" / "flash_bwd_stats" / name
     _build._lib = None
     _build.build(force=True)
+    if name == "parent":
+        _load_older(_build)
     ptxas = {k: v for k, v in cs._ptxas_kernels(
         _build.build_log["ptxas"]).items()
         if re.search(r"flash_bwd_d\w*kernelILi128E(Lb1E)?E", k)}
@@ -108,8 +127,8 @@ def _measure(torch, fa, _build, name, src, inputs):
     dkv_ms = cs._time_ms(torch, lambda: fa._launch_dkv(
         q, k, v, do, lse, delta, True, scale, 0), 20)
     mma_ms = None
-    if hasattr(_build.load_library(), "ptt_attention_force_mma_sync"):
-        with fa.mma_sync_route():   # the mma.sync dK/dV kernel, same call
+    if name != "parent":
+        with fa._mma_sync_route():   # the mma.sync dK/dV kernel, same call
             mma_ms = cs._time_ms(torch, lambda: fa._launch_dkv(
                 q, k, v, do, lse, delta, True, scale, 0), 20)
     over = {g: sum(not s[g]["ok"] for s in seeds) for g in ("dq", "dk", "dv")}
