@@ -1,6 +1,6 @@
 """Drive the PyTorch/CUDA port on one NVIDIA GPU and check it end to end.
 
-    python3 chip_smoke.py [--json-out PATH]
+    python3 chip_smoke.py [--json-out PATH] [--parent ROOT]
 
 Twelve phases, one result per line:
 
@@ -12,8 +12,9 @@ Twelve phases, one result per line:
    fed by TMA where a tensor map can describe the views, else, and for
    the dQ pass, on ``mma.sync``; f32 on the CUDA cores; the phases read
    the bf16 instances' registers and spills from the build log, count
-   HGMMA and UTMALDG in the wgmma kernels' SASS, and the profiler's
-   kernel names show which kernel each dtype and view ran, the wgmma
+   HGMMA and UTMALDG in the wgmma kernels' SASS, and the kernel nodes
+   of a CUDA graph captured around one call show which kernel each
+   dtype and view ran, the wgmma
    ones timed beside the ``mma.sync`` ones): the flash forward at
    the serving shapes, a causal ``q_offset`` case, a masked head dim (d =
    80, GQA) and the training shape on the q/k/v views of one fused QKV
@@ -47,12 +48,17 @@ Twelve phases, one result per line:
    on the dequantized weight; ``moe_dispatch`` — the
    MoE dispatch and combine kernels against their plain versions in f32
    and bf16 at ERNIE-MoE base width (M = 768, E = 8, top-2): the decode
-   and prefill shapes, a ragged S = 130, a capacity-dropping S = 4096,
-   every gate kind; the routing held exactly off router near ties
-   (counted and printed) and the public wrapper to the same bits, the
-   combine against the plain version with its rounding points and against
-   the einsum reference; both timed at the two serving shapes with the
-   stream held, the combine beside ``F.embedding_bag``;
+   shapes S = 1, 2, 4, 8, the prefill shape, a ragged S = 130, a
+   capacity-dropping S = 4096, every gate kind, the dispatch on each of
+   its two routes (one launch, three passes) where the shapes fit it; the
+   routing held exactly off router near ties (counted and printed), the
+   public wrapper and a second launch to the same bits, the combine
+   against the plain version with its rounding points and against the
+   einsum reference; the route of the two serving shapes by kernel name;
+   both routes timed over S = 1-512 and the combine at S = 1, 2, 4, 8 and
+   512 beside ``F.embedding_bag``, with the stream held, and with
+   ``--parent ROOT`` beside the MoE kernels of the tree under ROOT (e.g.
+   the parent commit's, unpacked with ``git archive``), in turns;
 4. ``serving`` — the serving main path at the full width of GPT-345M (24
    layers, hidden 1024, 8 heads of 128, vocab 50304, random weights from a
    seed): eight ragged requests through ``ServingEngine`` +
@@ -111,6 +117,7 @@ import os
 import re
 import subprocess
 import sys
+import tempfile
 import time
 import traceback
 
@@ -134,7 +141,12 @@ MOE_CASES = (("decode", 8, 8, 2, "gshard"), ("prefill", 512, 512, 2, "gshard"),
              ("ragged", 130, 130, 2, "gshard"),
              ("dropping", 4096, 640, 2, "gshard"),
              ("naive", 512, 512, 2, "naive"), ("switch", 512, 512, 1, "switch"),
-             ("renorm", 512, 512, 2, "renorm"))
+             ("renorm", 512, 512, 2, "renorm"),
+             ("decode_s1", 1, 1, 2, "gshard"), ("decode_s2", 2, 2, 2, "gshard"),
+             ("decode_s4", 4, 4, 2, "gshard"))
+# the dispatch routes' timed sweep and the combine's timed sizes (C = S)
+MOE_SWEEP_S = (1, 2, 4, 8, 16, 32, 64, 128, 130, 256, 512)
+MOE_COMBINE_S = (1, 2, 4, 8, 512)
 # MoE dispatch: a token whose k-th and (k+1)-th logits lie within this of
 # each other is a router near tie (a rounding of the gate product may flip
 # it); off near ties the routing, comb_idx and expert_in must be exact, and
@@ -353,34 +365,55 @@ def _flash_case(torch, fa, dt, q, k, v, off, label, mma_sync=False):
     return worst
 
 
-def _kernel_names(torch, fn, calls=3, attempts=4):
-    """The names of the kernels ``fn`` launches, by the profiler over a
-    few calls; profiled again, up to ``attempts`` times in all, while the
-    profiler records no device activity at all (it then measured nothing;
-    the card's machine has shown that for two profiles in a row)."""
-    def run():
-        for _ in range(calls):
-            fn()
-    names = _device_time(torch, run)[1]
-    for _ in range(attempts - 1):
-        if names:
-            break
-        _log("  the profiler recorded no device activity; profiling again")
-        names = _device_time(torch, run)[1]
-    return sorted(names)
+def _kernel_names(torch, fn):
+    """The kernels one call of ``fn`` launches, one name per launch: the
+    kernel nodes of a CUDA graph captured around the call (after one call
+    uncaptured), read from the graph's DOT dump after a replay. The CUDA
+    driver lists every node, so the names and their count are exact; the
+    profiler on the card's machine has recorded no device activity at
+    all for small windows, eight profiles in a row."""
+    fn()
+    torch.cuda.synchronize()
+    try:                        # the captured graph kept for its dump
+        graph = torch.cuda.CUDAGraph(keep_graph=True)
+    except TypeError:           # a PyTorch that keeps it in debug mode
+        graph = torch.cuda.CUDAGraph()
+    graph.enable_debug_mode()
+    with torch.cuda.graph(graph):
+        fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "graph.dot")
+        graph.debug_dump(path)
+        with open(path) as f:
+            dot = f.read()
+    del graph
+    names = []
+    for label in re.findall(r'label="([^"]*)"', dot):
+        label = label.replace("\\", "")
+        if "KERNEL" not in label and "<<<" not in label:
+            continue
+        # the kernel's name stands before its launch configuration
+        m = re.search(r"([^|{}]*?)\s*<<<", label)
+        names.append((m.group(1) if m else label).strip())
+    if not names:
+        raise AssertionError(f"a graph of one call holds no kernel node: "
+                             f"{dot[:2000]}")
+    return names
 
 
 def _check_routes(torch, what, fns, names):
     """Each ``fns[label] = (fn, want)`` ran the kernel named ``want`` and no
-    other of ``names`` (the kernels that compute ``what``), by the names
-    the profiler sees."""
+    other of ``names`` (the kernels that compute ``what``), by the kernel
+    nodes of a graph of one call."""
     for label, (fn, want) in fns.items():
-        ran = [n for n in _kernel_names(torch, fn)
-               if any(k in n for k in names)]
+        seen = _kernel_names(torch, fn)
+        ran = [n for n in seen if any(k in n for k in names)]
         _log(f"{what} {label} launches: {ran}")
         if not ran or any(want not in n for n in ran):
             raise AssertionError(f"{what} {label} did not run {want}: {ran} "
-                                 f"(all kernels seen: {_kernel_names(torch, fn)})")
+                                 f"(all kernels seen: {seen})")
 
 
 # the kernels of each route (flash_attention.kernel_route): wgmma, mma.sync
@@ -422,13 +455,13 @@ def _route_cases(torch, fa, views, launch):
 def _fwd_rows_launched(torch, fa, q, k, v):
     """The query rows a block of the wgmma forward owned in a launch on
     ``q, k, v``: 64 times its consumer warpgroups, the second template
-    argument of the kernel the profiler saw (``flash_fwd_wg_kernel<D,
-    NC>``)."""
+    argument of the kernel launched (``flash_fwd_wg_kernel<D, NC>``,
+    mangled ``flash_fwd_wg_kernelILiDELiNCE``)."""
     names = _kernel_names(torch, lambda: fa.flash_attention_fwd(q, k, v,
                                                                 True))
-    found = {int(m.group(1)) for m in (
-        re.search(r"flash_fwd_wg_kernel<\d+, (\d+)>", n) for n in names)
-        if m}
+    found = {int(m.group(1) or m.group(2)) for m in (
+        re.search(r"flash_fwd_wg_kernel(?:<\d+, ?(\d+)>|ILi\d+ELi(\d+)E)",
+                  n) for n in names) if m}
     if len(found) != 1:
         raise AssertionError(f"no single wgmma forward among {names}")
     return 64 * found.pop()
@@ -908,11 +941,34 @@ def phase_flash_bwd(torch, res):
     qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_()
                   for t in (q, k, v))
     dot = do.transpose(1, 2).contiguous()
-    sdpa_fwd_ms = _time_ms(torch, lambda: sdpa(qt, kt, vt, is_causal=True),
-                           20)
-    sdpa_both_ms = _time_ms(torch, lambda: torch.autograd.grad(
-        sdpa(qt, kt, vt, is_causal=True), (qt, kt, vt), dot), 20)
-    lib_ms = sdpa_both_ms - sdpa_fwd_ms
+    # SDPA's backward alone: its flash backward op on its own forward's
+    # saved outputs, the stream held; beside it, the same as the held
+    # forward + backward less the held forward
+    aten = torch.ops.aten
+    with torch.no_grad():
+        saved = aten._scaled_dot_product_flash_attention(
+            qt.detach(), kt.detach(), vt.detach(), 0.0, True)
+    o_s, lse_s, cum_q, cum_k, max_q, max_k, ph_seed, ph_off = saved[:8]
+    lib_ms = _time_held_ms(
+        torch, lambda: aten._scaled_dot_product_flash_attention_backward(
+            dot, qt.detach(), kt.detach(), vt.detach(), o_s, lse_s, cum_q,
+            cum_k, max_q, max_k, 0.0, True, ph_seed, ph_off), 20)
+    def sdpa_both():
+        return torch.autograd.grad(sdpa(qt, kt, vt, is_causal=True),
+                                   (qt, kt, vt), dot)
+    sdpa_fwd_ms = _time_held_ms(
+        torch, lambda: sdpa(qt, kt, vt, is_causal=True), 20)
+    sdpa_both_ms = _time_held_ms(torch, sdpa_both, 20)
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    with sdpa_kernel([SDPBackend.FLASH_ATTENTION]):  # its flash backend
+        flash_both_ms = _time_held_ms(torch, sdpa_both, 20)
+        flash_fwd_ms = _time_held_ms(
+            torch, lambda: sdpa(qt, kt, vt, is_causal=True), 20)
+    res["flash_bwd_sdpa"] = dict(
+        backward_op_ms=lib_ms, forward_ms=sdpa_fwd_ms,
+        forward_backward_ms=sdpa_both_ms,
+        difference_ms=sdpa_both_ms - sdpa_fwd_ms,
+        flash_backend_difference_ms=flash_both_ms - flash_fwd_ms)
     pairs = s * (s + 1) // 2 * b * n      # causal (query, key) pairs
     tensor = q.numel() * q.element_size()
     rows = b * n * s * 4                  # one f32 per query row
@@ -950,9 +1006,13 @@ def phase_flash_bwd(torch, res):
                             mma_sync_tflops=flops / dkv_mma_ms / 1e9)
     _log(f"flash backward bf16 at the training shape: dq + dkv kernels "
          f"{dq_ms + dkv_ms:.4f} ms; plain backward (dq, dk, dv) "
-         f"{plain_ms:.4f} ms; SDPA backward (autograd.grad of "
-         f"F.scaled_dot_product_attention(is_causal=True), less its "
-         f"forward {sdpa_fwd_ms:.4f} ms) {lib_ms:.4f} ms")
+         f"{plain_ms:.4f} ms; SDPA backward "
+         f"(aten._scaled_dot_product_flash_attention_backward, held) "
+         f"{lib_ms:.4f} ms (the kernels {(dq_ms + dkv_ms) / lib_ms:.2f}x); "
+         f"held forward + backward {sdpa_both_ms:.4f} ms less the held "
+         f"forward {sdpa_fwd_ms:.4f} ms: {sdpa_both_ms - sdpa_fwd_ms:.4f} ms "
+         f"(with the flash backend alone: {flash_both_ms:.4f} - "
+         f"{flash_fwd_ms:.4f} = {flash_both_ms - flash_fwd_ms:.4f} ms)")
     # achieved rates: the pair executes 7 products of the causal half (S
     # and dP in both passes); a single-pass backward such as SDPA's 5
     pair_flops = dq_flops + dkv_flops
@@ -1426,20 +1486,25 @@ def _max_rel(got, want):
     return (got.float() - want.float()).abs().max().item() / max(top, 1e-30)
 
 
-def _check_dispatch(torch, md, x, gw, gb, C, K, kind):
-    """The dispatch kernel against its plain version. The experts the kernel
-    picked equal the plain version's except at router near ties; given its
-    picks, comb_idx and expert_in are exactly the slot rule's and the row
-    gather's; val (where the picks agree), me and ce within MOE_REL of the
-    largest |value|. The public wrapper (its autograd Function and device
-    routing, as the engine calls it) gives the same bits as the launch whose
-    picks are read. Returns a reading, with ``ok``."""
+def _check_dispatch(torch, md, x, gw, gb, C, K, kind, route):
+    """The dispatch kernel on ``route`` against its plain version. The
+    experts the kernel picked equal the plain version's except at router
+    near ties; given its picks, comb_idx and expert_in are exactly the slot
+    rule's and the row gather's; val (where the picks agree), me and ce
+    within MOE_REL of the largest |value|. The public wrapper (its autograd
+    Function and device routing, as the engine calls it) gives the same
+    bits as the launch whose picks are read, and so does a second launch.
+    Returns a reading, with ``ok``."""
     E = MOE_E
-    out, idx = md._launch_dispatch(x, gw, gb, E, C, K, kind)
-    pub = md.fused_moe_dispatch(x, gw, gb, num_expert=E, capacity=C,
-                                top_k=K, gate_kind=kind)
+    with md._dispatch_route(route):
+        out, idx = md._launch_dispatch(x, gw, gb, E, C, K, kind)
+        pub = md.fused_moe_dispatch(x, gw, gb, num_expert=E, capacity=C,
+                                    top_k=K, gate_kind=kind)
+        again, idx2 = md._launch_dispatch(x, gw, gb, E, C, K, kind)
     torch.cuda.synchronize()
     wrapper_same = all(bool(torch.equal(a, b)) for a, b in zip(pub, out))
+    runs_same = all(bool(torch.equal(a, b))
+                    for a, b in zip((*out, idx), (*again, idx2)))
     ref = md.reference_moe_dispatch(x, gw, gb, num_expert=E, capacity=C,
                                     top_k=K, gate_kind=kind)
     logits = md.gate_logits(x, gw, gb)
@@ -1457,11 +1522,11 @@ def _check_dispatch(torch, md, x, gw, gb, C, K, kind):
     val_abs = (out[2][same] - ref[2][same]).abs().max().item()
     off_tie = int((flipped & ~near).sum())
     dropped = int((out[1] == E * C).sum())
-    ok = exact and wrapper_same and off_tie == 0 \
+    ok = exact and wrapper_same and runs_same and off_tie == 0 \
         and max(rel.values()) <= MOE_REL
-    return dict(near_ties=int(near.sum()), flipped=int(flipped.sum()),
-                wrapper_same=wrapper_same,
-                val_max_abs_err=val_abs,
+    return dict(route=route, near_ties=int(near.sum()),
+                flipped=int(flipped.sum()), wrapper_same=wrapper_same,
+                runs_same=runs_same, val_max_abs_err=val_abs,
                 flipped_off_tie=off_tie, exact=exact, dropped=dropped,
                 exact_vs_plain=bool(torch.equal(out[1], ref[1])),
                 ok=ok, **{f"{k}_rel": v for k, v in rel.items()})
@@ -1487,14 +1552,155 @@ def _check_combine(torch, md, dt, eo, val, comb):
         ok = spacings <= 1 and share <= MOE_COMBINE_EINSUM_TOL[0] \
             and rms <= MOE_COMBINE_EINSUM_TOL[1]
     row = dict(max_rel_vs_kernel_form=err_ref, einsum_share=share,
-               einsum_rms=rms, ok=ok,
+               einsum_rms=rms, ok=ok, bit_equal=bool(torch.equal(y, ref)),
                max_abs_err=(y.float() - ref.float()).abs().max().item())
     if dt == "bfloat16":
         row["bf16_spacings_vs_kernel_form"] = spacings
     return row
 
 
-def phase_moe_dispatch(torch, res):
+def _load_moe_tree(root, name="parent"):
+    """The MoE kernels' wrapper module of another tree (``--parent``: for
+    instance the parent commit's ``paddle_tpu_torch``, unpacked with ``git
+    archive`` under ``root``), importable beside this tree's as
+    ``ptt_<name>.kernels.moe_dispatch``. Its own ``_build`` builds that
+    tree's ``common.cu`` and ``moe_dispatch.cu`` alone, into
+    ``build/moe_<name>`` of this tree, and binds only the MoE entries."""
+    import importlib
+    import types
+    from pathlib import Path
+    pkg = Path(root).resolve() / "paddle_tpu_torch"
+    base = f"ptt_{name}"
+    for mod_name, path in ((base, pkg), (f"{base}.kernels", pkg / "kernels")):
+        mod = types.ModuleType(mod_name)
+        mod.__path__ = [str(path)]
+        sys.modules[mod_name] = mod
+    build = importlib.import_module(f"{base}.kernels._build")
+    csrc = build._CSRC
+    build._sources = lambda: [csrc / "common.cu", csrc / "moe_dispatch.cu"]
+    build._SIGNATURES = {k: v for k, v in build._SIGNATURES.items()
+                         if k.startswith("ptt_moe_")}
+    build._BUILD_DIR = Path(__file__).resolve().parent / "build" / \
+        f"moe_{name}"
+    md = importlib.import_module(f"{base}.kernels.moe_dispatch")
+    build.build(force=True)
+    build.load_library()
+    return md
+
+
+# the kernels of each dispatch route, by name
+MOE_ROUTE_KERNELS = dict(one_launch=("moe_dispatch_one_kernel",),
+                         three_pass=("moe_gate_kernel", "moe_scan_kernel",
+                                     "moe_scatter_kernel"))
+
+
+def _dispatch_bytes(S, C, K, item):
+    """Bytes the dispatch must move: x, gate_w and gate_b read once, the
+    whole [E * C, M] buffer, comb, val, me and ce written once."""
+    return (S * MOE_M * item + MOE_M * MOE_E * item + MOE_E * item
+            + MOE_E * C * MOE_M * item + S * K * 8 + 2 * MOE_E * 4)
+
+
+def _moe_timings(torch, md, gen, parent):
+    """bf16, the stream held, C = S, top-2: both dispatch routes over
+    MOE_SWEEP_S and the combine at MOE_COMBINE_S, each beside the plain
+    versions, the combine's library call and, with ``parent``, the parent
+    tree's kernels, in turns (parent, this tree, this tree, parent)."""
+    K = 2
+    kw = lambda S: dict(num_expert=MOE_E, capacity=S, top_k=K)  # noqa: E731
+    sweep = {}
+    for S in MOE_SWEEP_S:
+        x, gw, gb = _moe_inputs(torch, gen, "bfloat16", S)
+        routes = [r for r in md.DISPATCH_ROUTES
+                  if r == "three_pass" or md._one_launch_fits(S, MOE_E, K)]
+
+        def ours(route):
+            with md._dispatch_route(route):
+                return _time_held_ms(torch, lambda: md.fused_moe_dispatch(
+                    x, gw, gb, **kw(S)), 100)
+        with torch.no_grad():
+            t = {}
+            if parent is not None:
+                t["parent"] = [_time_held_ms(
+                    torch, lambda: parent.fused_moe_dispatch(
+                        x, gw, gb, **kw(S)), 100)]
+            for r in routes:
+                t[r] = [ours(r)]
+            for r in reversed(routes):
+                t[r].append(ours(r))
+            if parent is not None:
+                t["parent"].append(_time_held_ms(
+                    torch, lambda: parent.fused_moe_dispatch(
+                        x, gw, gb, **kw(S)), 100))
+            plain = _time_held_ms(torch, lambda: md.reference_moe_dispatch(
+                x, gw, gb, **kw(S)), 20)
+        ms = {k: sum(v) / len(v) for k, v in t.items()}
+        bound, by = _bound(2 * S * MOE_M * MOE_E,
+                           _dispatch_bytes(S, S, K, 2), "bfloat16")
+        sweep[S] = dict(S=S, route=md.dispatch_route(S, MOE_E, K),
+                        **{f"{k}_ms": v for k, v in ms.items()},
+                        runs_ms=t, plain_ms=plain, bound_ms=bound,
+                        bound_by=by, bytes=_dispatch_bytes(S, S, K, 2))
+        _log(f"moe dispatch bf16 S=C={S}: " + ", ".join(
+            f"{k} {v:.4f} ms ({'/'.join(f'{u:.4f}' for u in t[k])})"
+            for k, v in ms.items())
+            + f"; plain {plain:.4f} ms, bound {bound:.6f} ms ({by}); the "
+            f"shapes take {sweep[S]['route']}")
+    combine = {}
+    for S in MOE_COMBINE_S:
+        x, gw, gb = _moe_inputs(torch, gen, "bfloat16", S)
+        with torch.no_grad():
+            ei, comb, val, _, _ = md.fused_moe_dispatch(x, gw, gb, **kw(S))
+            eo = torch.randn(MOE_E * S, MOE_M, device="cuda",
+                             generator=gen).to(ei.dtype)
+            # the library call: F.embedding_bag (sum of rows weighted per
+            # sample) over the rows with a zero row appended for the
+            # sentinel and val in the rows' dtype, both made once, not timed
+            eo_pad = torch.cat([eo, eo.new_zeros(1, MOE_M)])
+            val_dt = val.to(eo.dtype)
+
+            def lib():
+                return torch.nn.functional.embedding_bag(
+                    comb, eo_pad, per_sample_weights=val_dt, mode="sum",
+                    padding_idx=MOE_E * S)
+            _, lib_share, lib_rms, _ = _scaled_err(
+                lib(), md.reference_moe_combine(eo, val, comb))
+            if not (lib_share <= MOE_COMBINE_EINSUM_TOL[0]
+                    and lib_rms <= MOE_COMBINE_EINSUM_TOL[1]):
+                raise AssertionError(
+                    f"embedding_bag does not compute the combine at S={S}: "
+                    f"{lib_share:.2e} of max, rms {lib_rms:.2e}")
+            fns = dict(kernel=lambda: md.fused_moe_combine(eo, val, comb),
+                       library=lib)
+            if parent is not None:
+                fns["parent"] = lambda: parent.fused_moe_combine(eo, val,
+                                                                 comb)
+            order = [k for k in ("parent", "kernel", "library") if k in fns]
+            t = {k: [] for k in order}
+            for k in order + order[::-1]:
+                t[k].append(_time_held_ms(torch, fns[k], 100))
+            plain = _time_held_ms(
+                torch, lambda: md.combine_kernel_reference(eo, val, comb), 20)
+            einsum = _time_held_ms(
+                torch, lambda: md.reference_moe_combine(eo, val, comb), 20)
+        ms = {k: sum(v) / len(v) for k, v in t.items()}
+        kept = int((comb < MOE_E * S).sum())
+        nbytes = kept * MOE_M * 2 + S * MOE_M * 2 + S * K * 8
+        bound, by = _bound(2 * kept * MOE_M, nbytes, "bfloat16")
+        combine[S] = dict(S=S, **{f"{k}_ms": v for k, v in ms.items()},
+                          runs_ms=t, plain_ms=plain, einsum_ms=einsum,
+                          bound_ms=bound, bound_by=by, bytes=nbytes,
+                          library_share=lib_share, library_rms=lib_rms)
+        _log(f"moe combine bf16 S={S}: " + ", ".join(
+            f"{k} {v:.4f} ms ({'/'.join(f'{u:.4f}' for u in t[k])})"
+            for k, v in ms.items())
+            + f" (embedding_bag vs einsum {lib_share:.2e} of max, rms "
+            f"{lib_rms:.2e}); plain {plain:.4f} ms (einsum {einsum:.4f}), "
+            f"bound {bound:.6f} ms ({by}: {nbytes / 1e6:.4f} MB)")
+    return sweep, combine
+
+
+def phase_moe_dispatch(torch, res, parent_root=None):
     from paddle_tpu_torch.kernels import moe_dispatch as md
     gen = torch.Generator(device="cuda").manual_seed(8)
     readings, failed = [], []
@@ -1502,127 +1708,99 @@ def phase_moe_dispatch(torch, res):
     for dt in ("bfloat16", "float32"):
         for label, S, C, K, kind in MOE_CASES:
             x, gw, gb = _moe_inputs(torch, gen, dt, S)
-            row = dict(case=label, dtype=dt, S=S, C=C, top_k=K, kind=kind)
-            row["dispatch"] = d = _check_dispatch(torch, md, x, gw, gb, C, K,
-                                                  kind)
-            near_total += d["near_ties"]
+            row = dict(case=label, dtype=dt, S=S, C=C, top_k=K, kind=kind,
+                       route=md.dispatch_route(S, MOE_E, K), dispatch={})
+            for route in md.DISPATCH_ROUTES:
+                if route == "one_launch" \
+                        and not md._one_launch_fits(S, MOE_E, K):
+                    continue
+                row["dispatch"][route] = d = _check_dispatch(
+                    torch, md, x, gw, gb, C, K, kind, route)
+                near_total += d["near_ties"]
+                _log(f"moe {dt} {label} S={S} C={C} k={K} {kind}, {route}"
+                     f"{' (the shapes take it)' if route == row['route'] else ''}"
+                     f": dispatch near ties {d['near_ties']}, picks "
+                     f"differing {d['flipped']} ({d['flipped_off_tie']} off "
+                     f"a near tie), comb_idx and expert_in exact "
+                     f"{d['exact']} (equal to the plain version's "
+                     f"{d['exact_vs_plain']}), wrapper's bits equal "
+                     f"{d['wrapper_same']}, two runs equal {d['runs_same']},"
+                     f" dropped {d['dropped']}, val/me/ce "
+                     f"{d['val_rel']:.2e}/{d['me_rel']:.2e}/{d['ce_rel']:.2e}"
+                     f" of max (tol {MOE_REL:g}) "
+                     f"{'ok' if d['ok'] else 'FAIL'}")
+                if not d["ok"]:
+                    failed.append(f"{dt} {label} dispatch {route}")
             _, comb, val, _, _ = md.reference_moe_dispatch(
                 x, gw, gb, num_expert=MOE_E, capacity=C, top_k=K,
                 gate_kind=kind)
             eo = torch.randn(MOE_E * C, MOE_M, device="cuda",
                              generator=gen).to(getattr(torch, dt))
             row["combine"] = c = _check_combine(torch, md, dt, eo, val, comb)
-            _log(f"moe {dt} {label} S={S} C={C} k={K} {kind}: dispatch "
-                 f"near ties {d['near_ties']}, picks differing {d['flipped']} "
-                 f"({d['flipped_off_tie']} off a near tie), comb_idx and "
-                 f"expert_in exact {d['exact']} (equal to the plain version's "
-                 f"{d['exact_vs_plain']}), wrapper's bits equal "
-                 f"{d['wrapper_same']}, dropped {d['dropped']}, val/me/ce "
-                 f"{d['val_rel']:.2e}/{d['me_rel']:.2e}/{d['ce_rel']:.2e} of "
-                 f"max (tol {MOE_REL:g}) {'ok' if d['ok'] else 'FAIL'}; "
-                 f"combine vs kernel form {c['max_rel_vs_kernel_form']:.2e}"
-                 + (f" ({c['bf16_spacings_vs_kernel_form']:.2f} bf16 spacings)"
+            _log(f"moe {dt} {label} S={S}: combine vs kernel form "
+                 f"{c['max_rel_vs_kernel_form']:.2e} (bit-equal "
+                 f"{c['bit_equal']}"
+                 + (f", {c['bf16_spacings_vs_kernel_form']:.2f} bf16 spacings"
                     if dt == "bfloat16" else "")
-                 + f", vs einsum {c['einsum_share']:.2e} of max, rms "
+                 + f"), vs einsum {c['einsum_share']:.2e} of max, rms "
                  f"{c['einsum_rms']:.2e} {'ok' if c['ok'] else 'FAIL'}")
-            if not (d["ok"] and c["ok"]):
-                failed.append(f"{dt} {label}")
+            if not c["ok"]:
+                failed.append(f"{dt} {label} combine")
             readings.append(row)
     _log(f"moe router near ties (k-th and (k+1)-th logits within "
-         f"{MOE_NEAR_TIE:g}) over all cases: {near_total}")
+         f"{MOE_NEAR_TIE:g}) over all cases and routes: {near_total}")
     res["moe_cases"] = readings
     res["moe_near_ties"] = near_total
     if failed:
         raise AssertionError(f"MoE kernels disagree: {failed}")
-    # time both kernels at the serving shapes, bf16, the stream held; the
-    # combine's library call is F.embedding_bag (sum of rows weighted per
-    # sample) over the rows with a zero row appended for the sentinel and
-    # val in the rows' dtype, both made once and not timed
-    shapes = {}
+    # the route each serving shape takes, by the names of the kernels one
+    # call launches
+    launched = {}
     for label, S in (("decode", 8), ("prefill", 512)):
-        C, K = S, 2
         x, gw, gb = _moe_inputs(torch, gen, "bfloat16", S)
-        kw = dict(num_expert=MOE_E, capacity=C, top_k=K)
-        with torch.no_grad():
-            ei, comb, val, _, _ = md.fused_moe_dispatch(x, gw, gb, **kw)
-            eo = torch.randn(MOE_E * C, MOE_M, device="cuda",
-                             generator=gen).to(ei.dtype)
-            eo_pad = torch.cat([eo, eo.new_zeros(1, MOE_M)])
-            val_dt = val.to(eo.dtype)
-
-            def lib():
-                return torch.nn.functional.embedding_bag(
-                    comb, eo_pad, per_sample_weights=val_dt, mode="sum",
-                    padding_idx=MOE_E * C)
-            lib_y = lib()
-            _, lib_share, lib_rms, _ = _scaled_err(
-                lib_y, md.reference_moe_combine(eo, val, comb))
-            if not (lib_share <= MOE_COMBINE_EINSUM_TOL[0]
-                    and lib_rms <= MOE_COMBINE_EINSUM_TOL[1]):
-                raise AssertionError(
-                    f"embedding_bag does not compute the combine at {label}: "
-                    f"{lib_share:.2e} of max, rms {lib_rms:.2e}")
-            t = dict(
-                dispatch=_time_held_ms(torch, lambda: md.fused_moe_dispatch(
-                    x, gw, gb, **kw), 100),
-                dispatch_plain=_time_held_ms(
-                    torch, lambda: md.reference_moe_dispatch(x, gw, gb, **kw),
-                    20),
-                combine=_time_held_ms(torch, lambda: md.fused_moe_combine(
-                    eo, val, comb), 100),
-                combine_plain=_time_held_ms(
-                    torch, lambda: md.combine_kernel_reference(eo, val, comb),
-                    20),
-                combine_einsum=_time_held_ms(
-                    torch, lambda: md.reference_moe_combine(eo, val, comb),
-                    20),
-                combine_library=_time_held_ms(torch, lib, 100))
-        item = x.element_size()
-        d_bytes = (S * MOE_M * item + MOE_M * MOE_E * item + MOE_E * item
-                   + MOE_E * C * MOE_M * item          # the whole buffer
-                   + S * K * 8 + 2 * MOE_E * 4)        # comb, val, me, ce
-        d_bound, d_by = _bound(2 * S * MOE_M * MOE_E, d_bytes, "bfloat16")
-        kept = int((comb < MOE_E * C).sum())
-        c_bytes = kept * MOE_M * item + S * MOE_M * item + S * K * 8
-        c_bound, c_by = _bound(2 * kept * MOE_M, c_bytes, "bfloat16")
-        shapes[label] = dict(S=S, C=C, **{f"{k}_ms": v for k, v in t.items()},
-                             dispatch_bound_ms=d_bound, dispatch_bound_by=d_by,
-                             dispatch_bytes=d_bytes, combine_bound_ms=c_bound,
-                             combine_bound_by=c_by, combine_bytes=c_bytes)
-        _log(f"moe bf16 {label} S={S} C={C} M={MOE_M} E={MOE_E} k={K}: "
-             f"dispatch kernel {t['dispatch']:.4f} ms, plain "
-             f"{t['dispatch_plain']:.4f} ms, bound {d_bound:.5f} ms ({d_by}: "
-             f"{d_bytes / 1e6:.3f} MB); combine kernel {t['combine']:.4f} ms,"
-             f" plain {t['combine_plain']:.4f} ms (einsum "
-             f"{t['combine_einsum']:.4f} ms), embedding_bag "
-             f"{t['combine_library']:.4f} ms (vs einsum {lib_share:.2e} of "
-             f"max, rms {lib_rms:.2e}), bound {c_bound:.5f} ms ({c_by}: "
-             f"{c_bytes / 1e6:.3f} MB); dispatch library none")
-    dec = shapes["decode"]
+        names = [n for n in _kernel_names(torch, lambda: md.fused_moe_dispatch(
+            x, gw, gb, num_expert=MOE_E, capacity=S, top_k=2)) if "moe_" in n]
+        route = md.dispatch_route(S, MOE_E, 2)
+        want = MOE_ROUTE_KERNELS[route]
+        _log(f"moe dispatch {label} S={S} ({route}), one call: {names}")
+        if len(names) != len(want) or not all(
+                sum(k in n for n in names) == 1 for k in want):
+            raise AssertionError(f"a {label} dispatch call did not launch "
+                                 f"{want}, each once: {names}")
+        launched[label] = dict(route=route, kernels=names)
+    res["moe_dispatch_launched"] = launched
+    parent = None
+    if parent_root is not None:
+        parent = _load_moe_tree(parent_root)
+        _log(f"moe: the parent tree's kernels from {parent_root}")
+    sweep, combine = _moe_timings(torch, md, gen, parent)
+    res["moe_sweep"], res["moe_combine_sizes"] = sweep, combine
     worst = lambda dt, part, key: max(                  # noqa: E731
         r[part][key] for r in readings if r["dtype"] == dt)
+    dec, dec_c = sweep[8], combine[8]
     res["moe_dispatch"] = dict(
         name="moe_dispatch", route="cuda",
         source="paddle_tpu_torch/csrc/moe_dispatch.cu",
         replaces="paddle_tpu/kernels/moe_dispatch.py:199",
-        launches=None, max_abs_err=worst("bfloat16", "dispatch",
-                                         "val_max_abs_err"),
-        ms=dec["dispatch_ms"], plain_ms=dec["dispatch_plain_ms"],
-        bound_ms=dec["dispatch_bound_ms"], bound_by=dec["dispatch_bound_by"],
-        library_ms=None, timed="the decode shape S = C = 8, M = 768, E = 8",
-        shapes=shapes)
+        launches=None, max_abs_err=max(
+            d["val_max_abs_err"] for r in readings
+            if r["dtype"] == "bfloat16" for d in r["dispatch"].values()),
+        ms=dec[dec["route"] + "_ms"], plain_ms=dec["plain_ms"],
+        bound_ms=dec["bound_ms"], bound_by=dec["bound_by"],
+        library_ms=None, timed=f"the decode shape S = C = 8, M = 768, E = "
+        f"8, top-2, the {dec['route']} route", kernel_route=dec["route"],
+        switch_point=md._ONE_LAUNCH_MAX_S)
     res["moe_combine"] = dict(
         name="moe_combine", route="cuda",
         source="paddle_tpu_torch/csrc/moe_dispatch.cu",
         replaces="paddle_tpu/kernels/moe_dispatch.py:413",
         launches=None, max_abs_err=worst("bfloat16", "combine",
                                          "max_abs_err"),
-        ms=dec["combine_ms"], plain_ms=dec["combine_plain_ms"],
-        bound_ms=dec["combine_bound_ms"], bound_by=dec["combine_bound_by"],
-        library_ms=dec["combine_library_ms"],
+        ms=dec_c["kernel_ms"], plain_ms=dec_c["plain_ms"],
+        bound_ms=dec_c["bound_ms"], bound_by=dec_c["bound_by"],
+        library_ms=dec_c["library_ms"],
         timed="the decode shape S = C = 8, M = 768, k = 2; library: "
-              "F.embedding_bag(mode='sum', per_sample_weights)",
-        shapes=shapes)
+              "F.embedding_bag(mode='sum', per_sample_weights)")
 
 
 # ----------------------------------------------------------------- phase 3
@@ -1835,8 +2013,8 @@ def _kernel_group(name):
         return "ragged_prefill_attention"
     if "int8_mm_" in name:
         return "int8_matmul"
-    if any(s in name for s in ("moe_gate_kernel", "moe_scan_kernel",
-                               "moe_scatter_kernel")):
+    if any(s in name for s in ("moe_dispatch_one_kernel", "moe_gate_kernel",
+                               "moe_scan_kernel", "moe_scatter_kernel")):
         return "moe_dispatch"
     if "moe_combine_kernel" in name:
         return "moe_combine"
@@ -1909,7 +2087,8 @@ def _profile_engine(torch, np, eng, cfg, prefill=True, lens=PROMPT_LENS):
                    busy_share=busy_us / 1e6 / wall if by_name else None,
                    device_ms_by_group={g: us / 1e3 for g, us in
                                        sorted(groups.items(),
-                                              key=lambda kv: -kv[1])})
+                                              key=lambda kv: -kv[1])},
+                   moe_kernels=sorted(n for n in by_name if "moe_" in n))
         out[window] = row
         if not by_name:
             _log(f"profile {window}: wall {row['wall_ms']:.2f} ms, device "
@@ -2256,6 +2435,19 @@ def phase_serving_moe(torch, np, res):
     _log("serving_moe bf16, 16 decode steps at bucket 8, profiled:")
     out["profile"] = _profile_engine(torch, np, eng, cfg, prefill=False,
                                      lens=MOE_PROMPT_LENS)
+    # the dispatch route of the decode steps (8 tokens), by kernel name
+    from paddle_tpu_torch.kernels import moe_dispatch as md
+    route = md.dispatch_route(8, cfg.num_experts, cfg.top_k)
+    seen = next(iter(out["profile"].values()))["moe_kernels"]
+    _log(f"serving_moe bf16 decode at bucket 8: route {route}, MoE kernels "
+         f"{seen}")
+    other = [k for r, ks in MOE_ROUTE_KERNELS.items() if r != route
+             for k in ks]
+    if seen and (not all(any(k in n for n in seen)
+                         for k in MOE_ROUTE_KERNELS[route])
+                 or any(k in n for n in seen for k in other)):
+        raise AssertionError(f"the decode steps did not run the {route} "
+                             f"dispatch: {seen}")
     del eng
     _stamp("serving_moe bf16 done")
     # f32: every token against the eager model's argmax, teacher-forced
@@ -2481,6 +2673,10 @@ def phase_training(torch, np, res):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--json-out", help="also write every result here")
+    ap.add_argument("--parent", help="a tree holding another "
+                    "paddle_tpu_torch (e.g. the parent commit's, unpacked "
+                    "with git archive): its MoE kernels are timed beside "
+                    "this tree's")
     args = ap.parse_args(argv)
 
     import torch
@@ -2511,7 +2707,8 @@ def main(argv=None) -> int:
               ("paged", lambda: phase_paged(torch, res)),
               ("paged_prefill", lambda: phase_paged_prefill(torch, res)),
               ("int8", lambda: phase_int8(torch, res)),
-              ("moe_dispatch", lambda: phase_moe_dispatch(torch, res)),
+              ("moe_dispatch", lambda: phase_moe_dispatch(torch, res,
+                                                          args.parent)),
               ("serving", lambda: phase_serving(torch, np, res)),
               ("serving_prefix", lambda: phase_serving_prefix(torch, np, res)),
               ("serving_int8", lambda: phase_serving_int8(torch, np, res)),

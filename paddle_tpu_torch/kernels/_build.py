@@ -68,9 +68,9 @@ _SIGNATURES = {
                         _I, _I, _I, _I, _I, _I, _I, _I,      # dtype layout M N K x_stride vec xvec
                         _P],                                 # stream
     "ptt_moe_dispatch": [_P, _P, _P, _P, _P, _P, _P, _P,     # x gw gb out comb val me ce
-                         _P, _L,                             # work, its words
+                         _P, _P, _L,                         # idx, work, its words
                          _I, _I, _I, _I, _I, _I, _I, _I, _I,  # dtype wdtype bdtype S M x_rs E K C
-                         _I, _I, _P],                        # kind vec stream
+                         _I, _I, _I, _P],                    # kind vec route stream
     "ptt_moe_combine": [_P, _P, _P, _P,                      # eo val comb y
                         _I, _I, _I, _I, _I, _I,              # dtype S M K EC vec
                         _P],                                 # stream

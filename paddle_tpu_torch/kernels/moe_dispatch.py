@@ -7,7 +7,8 @@ Counterpart of ``paddle_tpu/kernels/moe_dispatch.py``. Two kernels of
 - ``_dispatch_kernel``: :func:`fused_moe_dispatch` — the top-k gate
   (f32 logits, f32 softmax, top-k with ties to the lowest index), GShard's
   priority-major capacity-clamped slots and the scatter of token rows into
-  ``[E, C, M]``, in one call of three passes;
+  ``[E, C, M]``, in one C call: one launch at decode sizes, three passes
+  above them (:func:`dispatch_route`);
 - ``_combine_kernel``: :func:`fused_moe_combine` — the weighted gather-sum
   back to token order, with the Pallas kernel's rounding points.
 
@@ -33,11 +34,13 @@ the plain reference, as the JAX ``custom_vjp``s do.
 
 Dispatch: CPU tensors take the plain version; CUDA tensors launch the
 kernel or raise. ``dispatch_launches`` and ``combine_launches`` count
-kernel launches (one C call each). The f32 gate product of the plain
-version on the card needs ``torch.backends.cuda.matmul.allow_tf32`` False,
-PyTorch's default.
+C calls (the three-pass dispatch is three kernels in one call). The f32
+gate product of the plain version on the card needs
+``torch.backends.cuda.matmul.allow_tf32`` False, PyTorch's default.
 """
 from __future__ import annotations
+
+import contextlib
 
 import torch
 import torch.nn.functional as F
@@ -46,14 +49,25 @@ from . import _build
 
 __all__ = ["fused_moe_dispatch", "fused_moe_combine",
            "reference_moe_dispatch", "reference_moe_combine",
-           "combine_kernel_reference", "dispatch_indices", "gate_logits",
-           "near_ties", "GATE_KINDS"]
+           "combine_kernel_reference", "dispatch_indices", "dispatch_route",
+           "gate_logits", "near_ties", "GATE_KINDS", "DISPATCH_ROUTES"]
 
 GATE_KINDS = ("naive", "switch", "gshard", "renorm")
 _NEG_INF = -1e30
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _TOKENS_PER_BLOCK = 32       # the gate pass's block (csrc/moe_dispatch.cu)
 _MAX_EXPERTS = 512          # the gate pass keeps 2 x 32 x E floats in shared memory
+# the dispatch's routes, by their code in the C entry
+DISPATCH_ROUTES = ("one_launch", "three_pass")
+# The switch point: S up to this takes the one-launch route, where every
+# block routes all S tokens itself, so its time grows with S. chip_smoke.py's
+# route sweep (M = 768, E = 8, top-2, C = S, bf16; an H100 80GB HBM3 at
+# 700 W): one launch 0.0442 ms against three passes 0.0466 at S = 128,
+# 0.0467 against 0.0466 at S = 130 (PERF.md).
+_ONE_LAUNCH_MAX_S = 128
+_ONE_LAUNCH_MAX_E = 32       # one lane per expert
+_ONE_LAUNCH_SMEM = 48 * 1024  # its shared memory, without an opt-in
+_forced_route = None         # set only inside _dispatch_route
 
 # kernel launches (C calls) since each counter was last set to 0
 dispatch_launches = 0
@@ -193,6 +207,42 @@ def _vec_ok(*rows):
     return True
 
 
+def _one_launch_fits(S, E, K):
+    """The one-launch kernel's limits (``one_launch_fits`` in the source):
+    a lane per expert, and its routing arrays (3SK + SE + 64 words, in
+    16-byte units) within 48 KB of shared memory."""
+    words = -(-(3 * S * K + S * E + 64) // 4) * 4
+    return E <= _ONE_LAUNCH_MAX_E and 4 * words <= _ONE_LAUNCH_SMEM
+
+
+def dispatch_route(S, E, K):
+    """The route the dispatch kernel takes for ``S`` tokens, ``E`` experts
+    and top-``K``, from the shapes alone: ``"one_launch"`` at decode sizes
+    (``S <= _ONE_LAUNCH_MAX_S``, ``E <= 32``), else ``"three_pass"``;
+    inside :func:`_dispatch_route`, the route it names."""
+    if _forced_route is not None:
+        return _forced_route
+    if S <= _ONE_LAUNCH_MAX_S and _one_launch_fits(S, E, K):
+        return "one_launch"
+    return "three_pass"
+
+
+@contextlib.contextmanager
+def _dispatch_route(route):
+    """Every dispatch launch inside takes ``route`` (the one-launch route
+    raises where its limits are exceeded): how ``chip_smoke.py`` and the
+    card tests time and check both routes at one shape. No launch of the
+    program sets it."""
+    global _forced_route
+    if route not in DISPATCH_ROUTES:
+        raise ValueError(f"route {route!r} not in {DISPATCH_ROUTES}")
+    prev, _forced_route = _forced_route, route
+    try:
+        yield
+    finally:
+        _forced_route = prev
+
+
 def _check_cuda(name, ts):
     dev = ts[0].device
     for t in ts:
@@ -201,8 +251,9 @@ def _check_cuda(name, ts):
 
 
 def _launch_dispatch(x, gate_w, gate_b, E, C, K, kind):
-    """The dispatch kernel on CUDA tensors. Returns the five outputs and
-    the kernel's chosen experts ``[S, k]`` int32 (a view of its scratch)."""
+    """The dispatch kernel on CUDA tensors, on :func:`dispatch_route`'s
+    route. Returns the five outputs and the kernel's chosen experts
+    ``[S, k]`` int32."""
     global dispatch_launches
     _check_cuda("fused_moe_dispatch", (x, gate_w, gate_b))
     if x.dim() != 2 or gate_w.dim() != 2 or gate_b.dim() != 1:
@@ -234,24 +285,35 @@ def _launch_dispatch(x, gate_w, gate_b, E, C, K, kind):
     val = torch.empty((S, K), dtype=torch.float32, device=dev)
     me = torch.empty((E,), dtype=torch.float32, device=dev)
     ce = torch.empty((E,), dtype=torch.float32, device=dev)
-    nblk = -(-S // _TOKENS_PER_BLOCK)
-    words = S * K + 2 * K * nblk * E + E
-    words += words & 1
-    words += 2 * nblk * E
-    work = torch.empty((words,), dtype=torch.int32, device=dev)
+    idx = torch.empty((S, K), dtype=torch.int32, device=dev)
+    route = dispatch_route(S, E, K)
+    if route == "one_launch":
+        if not _one_launch_fits(S, E, K):
+            raise ValueError(f"the one-launch dispatch takes E <= "
+                             f"{_ONE_LAUNCH_MAX_E} and its routing arrays "
+                             f"within {_ONE_LAUNCH_SMEM} bytes, got S={S}, "
+                             f"E={E}, K={K}")
+        words, work_ptr = 0, None
+    else:                   # the three passes' scratch (csrc, Work)
+        nblk = -(-S // _TOKENS_PER_BLOCK)
+        words = 2 * K * nblk * E + E
+        words += words & 1
+        words += 2 * nblk * E
+        work = torch.empty((words,), dtype=torch.int32, device=dev)
+        work_ptr = work.data_ptr()
     vec = _vec_ok((x, x.stride(0)), (out, M))
     with torch.cuda.device(dev):
         err = _build.load_library().ptt_moe_dispatch(
             x.data_ptr(), gate_w.data_ptr(), gate_b.data_ptr(),
             out.data_ptr(), comb.data_ptr(), val.data_ptr(), me.data_ptr(),
-            ce.data_ptr(), work.data_ptr(), words, _DTYPE_CODES[x.dtype],
-            _DTYPE_CODES[gate_w.dtype], _DTYPE_CODES[gate_b.dtype], S, M,
-            x.stride(0), E, K, C,
-            GATE_KINDS.index(kind), int(vec),
+            ce.data_ptr(), idx.data_ptr(), work_ptr, words,
+            _DTYPE_CODES[x.dtype], _DTYPE_CODES[gate_w.dtype],
+            _DTYPE_CODES[gate_b.dtype], S, M, x.stride(0), E, K, C,
+            GATE_KINDS.index(kind), int(vec), DISPATCH_ROUTES.index(route),
             torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "fused_moe_dispatch")
     dispatch_launches += 1
-    return (out.view(E, C, M), comb, val, me, ce), work[:S * K].view(S, K)
+    return (out.view(E, C, M), comb, val, me, ce), idx
 
 
 def _dispatch(x, gate_w, gate_b, E, C, K, kind):

@@ -388,6 +388,11 @@ def gpt_stacked_param_shapes(config: GPTConfig):
 # jax.checkpoint_policies.dots_with_no_batch_dims_saveable keeps. Batched
 # attention products (bmm) and the flash kernel are recomputed.
 _DOTS_SAVED = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+# where the options GPTHybridTrainStep does not take yet are queued, by the
+# items' titles
+_HYBRID_ITEM = "ROADMAP.md Queue 1, 'Hybrid parallel'"
+_ANALYSIS_ITEM = ("ROADMAP.md Queue 1, 'Analysis, planner and auto-fusion "
+                  "over torch.fx graphs'")
 
 
 def _dots_policy(ctx, op, *args, **kwargs):
@@ -463,23 +468,19 @@ class GPTHybridTrainStep:
             if degree > 1:
                 raise NotImplementedError(
                     f"{axis}-parallel degree {degree}: the port trains on "
-                    f"one device (ROADMAP.md Queue 1 item 8, hybrid "
-                    f"parallel)")
+                    f"one device ({_HYBRID_ITEM})")
         if pipeline_schedule not in ("gpipe", "1f1b"):
             raise ValueError(f"unknown pipeline_schedule "
                              f"{pipeline_schedule!r}")
         if pipeline_schedule == "1f1b":
             raise NotImplementedError(
-                "pipeline_schedule='1f1b' is not ported (ROADMAP.md Queue 1 "
-                "item 8, hybrid parallel)")
+                f"pipeline_schedule='1f1b' is not ported ({_HYBRID_ITEM})")
         if int(virtual_pp_degree or 1) > 1:
             raise NotImplementedError(
-                "virtual_pp_degree > 1 is not ported (ROADMAP.md Queue 1 "
-                "item 8, hybrid parallel)")
+                f"virtual_pp_degree > 1 is not ported ({_HYBRID_ITEM})")
         if validate:
             raise NotImplementedError(
-                "validate=True is not ported (ROADMAP.md Queue 1 item 14, "
-                "analysis)")
+                f"validate=True is not ported ({_ANALYSIS_ITEM})")
         if remat not in (False, True, "dots"):
             raise ValueError(f"remat must be False, True or 'dots', got "
                              f"{remat!r}")

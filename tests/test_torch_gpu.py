@@ -760,6 +760,159 @@ def test_moe_combine_kernel_matches_plain(dtype, S, M, E, C, K):
                                    atol=2e-2)
 
 
+# the dispatch's routes at decode sizes and around the switch point:
+# (S, M, E, C, K, kind, x row stride or None for a contiguous x)
+ONE_LAUNCH_S = tmd._ONE_LAUNCH_MAX_S
+DISPATCH_ROUTE_CASES = {
+    "decode_s1": (1, 768, 8, 1, 2, "gshard", None),
+    "decode_s2": (2, 768, 8, 2, 2, "gshard", None),
+    "decode_s4": (4, 768, 8, 4, 2, "gshard", None),
+    "switch_point": (ONE_LAUNCH_S, 768, 8, ONE_LAUNCH_S, 2, "gshard", None),
+    "past_switch_point": (ONE_LAUNCH_S + 1, 768, 8, ONE_LAUNCH_S + 1, 2,
+                          "gshard", None),
+    "dropping": (8, 768, 8, 1, 2, "renorm", None),      # C < S
+    "e5": (7, 96, 5, 7, 3, "naive", None),
+    "e6": (9, 64, 6, 1, 1, "switch", None),             # drops too
+    "m20_no_vectors": (5, 20, 4, 5, 2, "gshard", None),
+    "e32_gate_unstaged": (8, 768, 32, 8, 2, "gshard", None),  # 96 KB gate_w
+    "fused_x": (8, 768, 8, 8, 2, "gshard", 3 * 768),    # a slice of [S, 3M]
+}
+
+
+def _dispatch_route_inputs(dev, dt, S, M, E, stride, seed):
+    x, gw, gb = _dispatch_inputs(dev, dt, S, M, E, seed)
+    if stride is not None:           # x as the first M columns of wider rows
+        wide = torch.from_numpy(_rand((S, stride), seed + 1)).to(dev, dt)
+        wide[:, :M] = x
+        x = wide[:, :M]
+        assert x.stride(0) == stride and not x.is_contiguous()
+    return x, gw, gb
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("route", tmd.DISPATCH_ROUTES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", sorted(DISPATCH_ROUTE_CASES))
+def test_moe_dispatch_routes_match_plain(case, dtype, route):
+    """Each dispatch route against the plain version (the routing exact off
+    near ties, val, me and ce within 1e-6 of the largest value), f32 and
+    bf16 gate weights, two calls bit-equal; the route the shapes pick is the
+    one-launch route up to the switch point and the three passes past it."""
+    dev = _cuda()
+    S, M, E, C, K, kind, stride = DISPATCH_ROUTE_CASES[case]
+    want = "one_launch" if S <= ONE_LAUNCH_S else "three_pass"
+    assert tmd.dispatch_route(S, E, K) == want
+    x, gw, gb = _dispatch_route_inputs(dev, getattr(torch, dtype), S, M, E,
+                                       stride, S * 7 + M)
+    with tmd._dispatch_route(route):
+        n0 = tmd.dispatch_launches
+        out, idx = tmd._launch_dispatch(x, gw, gb, E, C, K, kind)
+        torch.cuda.synchronize()
+        assert tmd.dispatch_launches == n0 + 1
+        check_dispatch(out, idx, x, gw, gb, E, C, K, kind)
+        if E * C < S * K:
+            assert (out[1] == E * C).any(), "the case drops no choice"
+        wb = (gw.bfloat16(), gb.bfloat16())
+        check_dispatch(*tmd._launch_dispatch(x, *wb, E, C, K, kind), x,
+                       *wb, E, C, K, kind)
+        out2, idx2 = tmd._launch_dispatch(x, gw, gb, E, C, K, kind)
+    for a, b in zip((*out, idx), (*out2, idx2)):
+        assert torch.equal(a, b)
+
+
+def _moe_kernels(fn, calls=5):
+    """The MoE kernel launches of ``calls`` calls of ``fn``, by name under
+    the profiler (one entry per launch seen; the profiler on the card's
+    machine may drop some); profiled again while it records no device
+    activity at all."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(8):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events()
+                 if e.device_type == DeviceType.CUDA]
+        if names:
+            break
+    return [n for n in names if "moe_" in n]
+
+
+def _graph_moe_kernels(fn, path):
+    """The MoE kernel nodes of a CUDA graph captured around one call of
+    ``fn`` (by their labels in the graph's DOT dump), and the call's
+    outputs after a replay."""
+    try:                        # the captured graph kept for its dump
+        g = torch.cuda.CUDAGraph(keep_graph=True)
+    except TypeError:           # a PyTorch that keeps it in debug mode
+        g = torch.cuda.CUDAGraph()
+    g.enable_debug_mode()
+    with torch.cuda.graph(g):
+        out = fn()
+    g.replay()
+    torch.cuda.synchronize()
+    g.debug_dump(str(path))
+    labels = re.findall(r'label="([^"]*)"', path.read_text())
+    return [lab for lab in labels if "moe_" in lab], out
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("S", [8, ONE_LAUNCH_S + 1])
+def test_moe_dispatch_launches_by_name(S, tmp_path):
+    """At the decode shape S = 8 the dispatch is one kernel launch, the
+    one-launch kernel; past the switch point the three passes. Read by
+    name under the profiler, and counted exactly as the kernel nodes of a
+    CUDA graph captured around one call, whose replay gives the eager
+    call's bits."""
+    dev = _cuda()
+    x, gw, gb = _dispatch_inputs(dev, torch.bfloat16, S, 768, 8, 3)
+    gw, gb = gw.bfloat16(), gb.bfloat16()
+
+    def call():
+        return tmd.fused_moe_dispatch(x, gw, gb, num_expert=8, capacity=S,
+                                      top_k=2)
+    eager = call()                                      # built and warm
+    want = (("moe_dispatch_one_kernel",) if S <= ONE_LAUNCH_S else
+            ("moe_gate_kernel", "moe_scan_kernel", "moe_scatter_kernel"))
+    names = _moe_kernels(call)
+    assert names and len(names) <= 5 * len(want), names
+    assert all(any(k in n for n in names) for k in want), names
+    assert all(any(k in n for k in want) for n in names), names
+    nodes, out = _graph_moe_kernels(call, tmp_path / "dispatch.dot")
+    assert len(nodes) == len(want) and all(
+        sum(k in n for n in nodes) == 1 for k in want), nodes
+    for a, b in zip(eager, out):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("S,M,E,C,K", [(40, 768, 4, 5, 1), (24, 768, 6, 3, 3),
+                                       (8, 768, 8, 8, 2), (3, 20, 4, 1, 3)])
+def test_moe_combine_grid_drops_bit_equal(dtype, S, M, E, C, K):
+    """The combine over its (token, column chunk) grid with dropped choices:
+    bit-equal to the plain version with its rounding points in f32, within
+    one bf16 spacing in bf16; two calls bit-equal."""
+    dev = _cuda()
+    dt = getattr(torch, dtype)
+    x, gw, gb = _dispatch_inputs(dev, torch.float32, S, 16, E, S + K)
+    _, comb, val, _, _ = tmd.reference_moe_dispatch(
+        x, gw, gb, num_expert=E, capacity=C, top_k=K)
+    if C * E < S * K:
+        assert (comb == E * C).any(), "the case drops no choice"
+    eo = torch.from_numpy(_rand((E * C, M), 5)).to(dev, dt)
+    y = tmd.fused_moe_combine(eo, val, comb)
+    torch.cuda.synchronize()
+    ref = tmd.combine_kernel_reference(eo, val, comb)
+    if dtype == "float32":
+        assert torch.equal(y, ref)
+    else:
+        assert _within_one_bf16_spacing(y, ref)
+    assert torch.equal(y, tmd.fused_moe_combine(eo, val, comb))
+
+
 def _moe_tiny_cfg(**kw):
     base = dict(num_hidden_layers=2, hidden_size=32, num_attention_heads=2,
                 intermediate_size=64, num_experts=4, capacity_factor=100.0,

@@ -191,7 +191,8 @@ def test_ctypes_signatures_match_c_entries():
     ("torch_flash_bwd_stats", "flash_attention_bwd_tc.cuh"),
     ("torch_flash_bwd_stats", "flash_attention_bwd_wg.cu"),
     ("torch_attn_fwd_stats", "attention_fwd_tc.cuh"),
-    ("torch_attn_fwd_stats", "flash_attention_fwd_wg.cu")])
+    ("torch_attn_fwd_stats", "flash_attention_fwd_wg.cu"),
+    ("torch_moe_stats", "moe_dispatch.cu")])
 def test_stats_tool_variants_apply_to_the_sources(tool, source):
     """Every source variant of the card's statistics tools replaces text
     that the kernel source it names holds, so each tool builds the variant
