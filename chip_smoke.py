@@ -39,7 +39,9 @@ Twelve phases, one result per line:
    blocks than SMs), each case held to its own scale, also
    against a plain version with the kernel's rounding points and a
    control without the rounding of P, two calls bit-equal and 6 other
-   seeds logged; the five GPT-345M
+   seeds logged, one call captured in a CUDA graph with its offset in
+   device memory and replayed at five offsets, each bit-equal to an eager
+   launch there; the five GPT-345M
    weight shapes at M = 1, 8, 9 and 256 and odd sizes, two calls
    bit-equal, the instances' registers and spills from the build log),
    each timed at its serving shape (with the stream held, so the host's
@@ -62,12 +64,18 @@ Twelve phases, one result per line:
 4. ``serving`` — the serving main path at the full width of GPT-345M (24
    layers, hidden 1024, 8 heads of 128, vocab 50304, random weights from a
    seed): eight ragged requests through ``ServingEngine`` +
-   ``ContinuousBatchingScheduler``, in bf16 and in f32. bf16: after a
-   warm-up that touches every prefill and decode bucket, the batch is
-   served three times (throughput, latency, memory and kernel launch
-   counts of each run); then host against device time per decode step
-   by CUDA events, and eight prefills and 16 decode steps under
-   ``torch.profiler`` for the device time by kernel group. f32: every
+   ``ContinuousBatchingScheduler``, in bf16 and in f32. The serving phases
+   run the engines as they come, each bucket program captured as a CUDA
+   graph (capture time, graphs and pool memory printed), and hold them
+   against an eager engine (``aot=False``) on the same prompts: every
+   token equal, tokens/s side by side. Launch counts are exact over graph
+   replays too. bf16: after a warm-up that touches every prefill and
+   decode bucket, the batch is served three times (throughput, latency,
+   memory and kernel launch counts of each run); then host against
+   device time per decode step by CUDA events, captured and eager, and
+   eight prefills and 16 decode steps under ``torch.profiler`` for the
+   device time by kernel group; a sampled run (temperature 0.8, top-k 40)
+   captured and eager from one seed, every token equal. f32: every
    generated token is checked against the plain dense model,
    teacher-forced;
 5. ``serving_prefix`` — the chunked engine with and without the prefix
@@ -75,12 +83,14 @@ Twelve phases, one result per line:
    (page 64, chunk 256, prefill budget 896 tokens a tick), bf16 counted
    runs after a warm-up and, with the cache, the same traffic with 8 new
    tokens under ``torch.profiler``; then f32, where every token with the
-   cache equals the token without it;
+   cache equals the token without it; with the cache, an eager engine in
+   bf16 and f32, every token equal;
 6. ``serving_int8`` — the eight ragged requests of ``serving`` with
    ``quantize="int8"``: a bf16 counted run beside the float engine's, the
    host/device split of a decode step and 16 decode steps under
    ``torch.profiler``, then f32, where every token
-   equals the argmax of the dense model on the dequantized weights;
+   equals the argmax of the dense model on the dequantized weights; an
+   eager engine in bf16 and f32, every token equal;
 7. ``serving_moe`` — the ERNIE-MoE serving path at the full width of
    ``ernie_moe_base_config`` (12 layers, hidden 768, 12 heads of 64, 8
    experts top-2 in every second layer, vocab 30522, 512 positions,
@@ -88,7 +98,8 @@ Twelve phases, one result per line:
    ``MoEServingEngine`` + ``ContinuousBatchingScheduler``, page 64. bf16:
    after a warm-up over every bucket one counted run (exact launches of
    the dispatch, combine and paged decode kernels, none of the others),
-   then 16 decode steps under ``torch.profiler``; f32: every generated
+   then 16 decode steps under ``torch.profiler``, and an eager engine's
+   counted run, every token equal; f32: every generated
    token against the argmax of the eager ``ErnieMoeForPretraining``
    (gather path, plain attention), teacher-forced under the causal mask;
 8. ``training`` — the training main path: ``GPTHybridTrainStep`` on
@@ -1282,6 +1293,8 @@ def phase_paged_prefill(torch, res):
     if not same:
         raise AssertionError("two chunk-prefill calls on the same inputs "
                              "differ")
+    res["paged_prefill_graph_offsets"] = _prefill_graph_offsets(
+        torch, pa, q, pools[0][1], pools[0][2], pt)
     prefill_kernels = dict(bfloat16="paged_prefill_tc_kernel",
                            float32="paged_prefill_kernel")
     _check_routes(torch, "ragged_prefill_attention", {
@@ -1290,14 +1303,19 @@ def phase_paged_prefill(torch, res):
             prefill_kernels[dt])
         for dt in ("bfloat16", "float32")}, tuple(prefill_kernels.values()))
 
-    def cycling(fn, step=[0]):
+    def cycling(fn, o, step=[0]):
         def run():
             i = step[0] % n_layers
             step[0] += 1
-            return fn(q, pools[i][1], pools[i][2], pt, off)
+            return fn(q, pools[i][1], pools[i][2], pt, o)
         return run
-    ms = _time_held_ms(torch, cycling(pa.ragged_prefill_attention), 100)
-    plain_ms = _time_held_ms(torch, cycling(pa.paged_prefill_attention), 20)
+    # the kernel reads its offset from the device, as the chunk program
+    # passes it
+    off_dev = torch.full((1,), off, dtype=torch.int32, device="cuda")
+    ms = _time_held_ms(torch, cycling(pa.ragged_prefill_attention, off_dev),
+                       100)
+    plain_ms = _time_held_ms(torch, cycling(pa.paged_prefill_attention, off),
+                             20)
     # the yardstick: SDPA with an explicit causal-offset mask over K/V
     # already gathered dense (the gather not timed)
     T = off + C
@@ -1343,6 +1361,43 @@ def phase_paged_prefill(torch, res):
             r["tiled"]["max_abs_err"] for r in readings
             if r["dtype"] == "bfloat16"))
     res["paged_prefill_worst_err"] = worst
+
+
+# chunk offsets of the captured chunk-prefill call (page 64): the first
+# chunk, mid-page, page-aligned and the serving shape's
+GRAPH_OFFSETS = (0, 37, 256, 500, 768)
+
+
+def _prefill_graph_offsets(torch, pa, q, kp, vp, pt):
+    """One chunk-prefill call captured in a CUDA graph, its offset a device
+    int32, replayed at each of ``GRAPH_OFFSETS`` (bf16 and f32): every
+    replay bit-equal to an eager launch at that offset, passed as an int.
+    This is what lets one chunk program serve every chunk and every cached
+    prefix length."""
+    rows = {}
+    for dt in ("bfloat16", "float32"):
+        t = getattr(torch, dt)
+        qd, kd, vd = q.to(t), kp.to(t), vp.to(t)
+        off = torch.zeros(1, dtype=torch.int32, device="cuda")
+        pa.ragged_prefill_attention(qd, kd, vd, pt, off)
+        torch.cuda.synchronize()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            out = pa.ragged_prefill_attention(qd, kd, vd, pt, off)
+        equal = {}
+        for o in GRAPH_OFFSETS:
+            off.fill_(o)
+            graph.replay()
+            equal[o] = torch.equal(
+                out, pa.ragged_prefill_attention(qd, kd, vd, pt, o))
+        rows[dt] = equal
+        _log(f"  chunk prefill {dt}, one captured call replayed at offsets "
+             f"{list(GRAPH_OFFSETS)}: bit-equal to eager launches "
+             f"{list(equal.values())}")
+        if not all(equal.values()):
+            raise AssertionError(f"chunk prefill {dt}: a replay differs "
+                                 f"from the eager launch: {equal}")
+    return rows
 
 
 def _prefill_seed_sweep(torch, pa, seeds=6):
@@ -1907,14 +1962,82 @@ def _serve_counted(torch, np, eng, cfg, label, prompts=None,
     return e2e, reqs
 
 
+def _capture_info(eng, label):
+    """What capturing ``eng``'s bucket programs cost: seconds, graphs held
+    and the bytes of their shared memory pool (logged)."""
+    info = dict(compile_s=eng.compile_s,
+                aot_programs=eng.status()["aot_programs"],
+                graph_pool_bytes=eng.graph_pool_bytes())
+    pool = info["graph_pool_bytes"]
+    _log(f"{label}: {info['aot_programs']} CUDA graphs captured in "
+         f"{eng.compile_s:.2f} s, graph pool "
+         f"{'not measured' if pool is None else f'{pool / 2**20:.1f} MiB'}")
+    return info
+
+
+def _same_tokens(label, got, want):
+    """Every token of the captured engine's requests ``got`` equal to the
+    eager engine's ``want`` at the same place (greedy or sampled with the
+    same seed); raises at the first difference. Returns the count."""
+    n = 0
+    for a, b in zip(got, want, strict=True):
+        if list(a.tokens) != list(b.tokens):
+            i = next((i for i, (x, y) in enumerate(zip(a.tokens, b.tokens))
+                      if x != y), min(len(a.tokens), len(b.tokens)))
+            raise AssertionError(
+                f"{label}: rid {a.rid} token {i}: captured "
+                f"{list(a.tokens)[i:i + 1]}, eager {list(b.tokens)[i:i + 1]}")
+        n += len(a.tokens)
+    return n
+
+
+def _beside(label, cap, eager):
+    """The captured and the eager engine's run side by side (logged)."""
+    _log(f"{label}, captured vs eager (aot=False): tokens/s "
+         f"{cap['tokens_per_s']:.1f} vs {eager['tokens_per_s']:.1f} "
+         f"({cap['tokens_per_s'] / eager['tokens_per_s']:.2f}x), per-token "
+         f"p50 {cap['per_token_p50_ms']:.2f} vs "
+         f"{eager['per_token_p50_ms']:.2f} ms, TTFT mean "
+         f"{cap['ttft_mean_ms']:.1f} vs {eager['ttft_mean_ms']:.1f} ms")
+    return dict(tokens_per_s=cap["tokens_per_s"],
+                eager_tokens_per_s=eager["tokens_per_s"],
+                per_token_p50_ms=cap["per_token_p50_ms"],
+                eager_per_token_p50_ms=eager["per_token_p50_ms"],
+                ttft_mean_ms=cap["ttft_mean_ms"],
+                eager_ttft_mean_ms=eager["ttft_mean_ms"])
+
+
+def _eager_check(torch, np, model, cfg, label, reqs, warm=True,
+                 run=None, **kw):
+    """One eager engine (``aot=False``) on ``model`` serving the same
+    prompts as the captured run ``reqs`` (``run(eng)`` -> (e2e, requests);
+    a counted run of the eight ragged prompts by default): every token
+    equal. Returns (the eager run's e2e, the tokens compared)."""
+    eng = _engine(model, aot=False, **kw)
+    if warm:
+        _warm(eng, cfg, np)
+    if run is None:
+        e2e, got = _serve_counted(torch, np, eng, cfg, label + " eager",
+                                  prompts=[r.prompt for r in reqs])
+    else:
+        e2e, got = run(eng)
+    del eng
+    n = _same_tokens(label, reqs, got)
+    _log(f"{label}: {n} tokens of the captured engine equal the eager "
+         f"engine's")
+    return e2e, n
+
+
 def _decode_split(torch, np, eng, cfg, n_steps=16):
     """Host against device time of a bf16 decode step at bucket 8, by
     CUDA events, over the eight prompts. Each step is run twice:
 
     * served, as the scheduler runs it: ``upload`` is the host time to
-      copy the step's inputs to the card (blocking copies), ``issue`` that
-      plus the time to launch the step, ``step`` the time until its tokens
-      are on the host;
+      move the step's inputs to the card (for an eager engine a blocking
+      copy; for a captured one a write into pinned memory and a
+      non-blocking copy into the bucket graph's inputs), ``issue`` that
+      plus the time to launch the step (one graph replay when captured),
+      ``step`` the time until its tokens are on the host;
     * held: after the upload, a device-side sleep holds the stream for
       longer than the host takes to launch the step, so the events around
       the launches time the device's work alone (``device``), with no
@@ -1970,7 +2093,9 @@ def _decode_split(torch, np, eng, cfg, n_steps=16):
     out.update(n_steps=n_steps, sleep_ms=sleep_ms,
                device_share=out["device_ms_p50"] / out["step_ms_p50"],
                samples=rows)
-    _log(f"decode step bf16, bucket 8, p50 of {n_steps}: host upload "
+    how = "captured" if eng.status()["aot_programs"] else "eager"
+    _log(f"decode step bf16 ({how}), "
+         f"bucket 8, p50 of {n_steps}: host upload "
          f"{out['upload_ms_p50']:.3f} ms, upload + issue "
          f"{out['issue_ms_p50']:.3f} ms, step to tokens on host "
          f"{out['step_ms_p50']:.3f} ms, device work (CUDA events, stream "
@@ -2145,8 +2270,10 @@ def phase_serving(torch, np, res):
          f"heads={cfg.num_heads} head_dim={cfg.head_dim} "
          f"vocab={cfg.vocab_size} max_pos={cfg.max_position_embeddings}")
 
-    # ---- bf16: the measured runs -----------------------------------------
-    eng = _engine(copy.deepcopy(model).to(torch.bfloat16))
+    # ---- bf16: the measured runs of the captured engine (the default) ----
+    bf16 = copy.deepcopy(model).to(torch.bfloat16)
+    eng = _engine(bf16)
+    res["serving_bf16_capture"] = _capture_info(eng, "serving bf16")
     _warm(eng, cfg, np)
     runs = []
     for k in range(N_RUNS):
@@ -2156,7 +2283,7 @@ def phase_serving(torch, np, res):
         _log(f"serving bf16 run {k + 1}/{N_RUNS}: " + json.dumps(
             {k: v for k, v in e2e.items() if k != "ttft_ms"}))
         if k == 0:
-            bf16_tokens = tokens
+            bf16_tokens, bf16_reqs = tokens, reqs
         elif tokens != bf16_tokens:
             res["bf16_runs_differ"] = True
             _log(f"serving bf16 run {k + 1}: tokens differ from run 1")
@@ -2165,14 +2292,44 @@ def phase_serving(torch, np, res):
     res["decode_split_bf16"] = _decode_split(torch, np, eng, cfg)
     res["profile_bf16"] = _profile_engine(torch, np, eng, cfg)
     del eng
+    # the eager engine on the same prompts: every token equal; its decode
+    # step split beside the captured one's
+    eager = _engine(bf16, aot=False)
+    _warm(eager, cfg, np)
+    e2e, got = _serve_counted(torch, np, eager, cfg, "serving bf16 eager")
+    n = _same_tokens("serving bf16", bf16_reqs, got)
+    res["serving_bf16_eager"] = e2e
+    res["serving_bf16_beside_eager"] = dict(
+        _beside("serving bf16", runs[0], e2e), tokens_equal=n)
+    res["decode_split_bf16_eager"] = _decode_split(torch, np, eager, cfg)
+    del eager
+    # sampling (temperature 0.8, top-k 40), captured and eager from one
+    # seed: every token equal
+    sampled = {}
+    for aot in (True, False):
+        e = _engine(bf16, aot=aot, temperature=0.8, top_k=40, seed=11)
+        _, sampled[aot] = _serve_counted(
+            torch, np, e, cfg, f"serving bf16 sampled aot={aot}")
+        del e
+    n = _same_tokens("serving bf16 sampled", sampled[True], sampled[False])
+    res["serving_bf16_sampled_tokens_equal"] = n
+    _log(f"serving bf16 sampled (temperature 0.8, top-k 40, seed 11): {n} "
+         f"tokens of the captured engine equal the eager engine's")
+    del bf16, sampled
 
     # ---- f32: correctness against the plain dense model ------------------
-    _, reqs = _serve_counted(torch, np, _engine(model), cfg, "serving f32")
+    eng = _engine(model)
+    res["serving_f32_capture"] = _capture_info(eng, "serving f32")
+    _, reqs = _serve_counted(torch, np, eng, cfg, "serving f32")
+    del eng
     checked, near_ties = _check_tokens(torch, np, model, reqs)
     agree = sum(a == b for x, y in zip(bf16_tokens, reqs)
                 for a, b in zip(x, y.tokens))
+    _, n = _eager_check(torch, np, model, cfg, "serving f32", reqs,
+                        warm=False)
     res["serving_f32"] = dict(tokens_checked=checked, near_ties=near_ties,
-                              bf16_f32_token_agreement=agree / checked)
+                              bf16_f32_token_agreement=agree / checked,
+                              eager_tokens_equal=n)
     _log(f"serving f32: {checked} generated tokens equal the dense "
          f"reference's argmax (near ties, gap < 1e-3: {near_ties}); "
          f"bf16 tokens equal to f32: {agree}/{checked}")
@@ -2287,9 +2444,13 @@ def phase_serving_prefix(torch, np, res):
         label = f"serving_prefix bf16 cache={'on' if cache else 'off'}"
         eng = _engine(bf16, prefill_chunk=CHUNK, prefix_cache=cache)
         _stamp(f"{label}: engine built")
+        out["bf16_capture_" + ("on" if cache else "off")] = _capture_info(
+            eng, label)
         _prefix_run(torch, eng, warm, label + " warm-up")
         _stamp(f"{label}: warmed up")
-        e2e, _ = _prefix_run(torch, eng, prompts, label)
+        e2e, reqs = _prefix_run(torch, eng, prompts, label)
+        if cache:
+            bf16_reqs = reqs
         out["bf16_cache_" + ("on" if cache else "off")] = e2e
         _log(f"{label}: " + json.dumps({k: v for k, v in e2e.items()
                                        if k not in ("pool", "ttft_ms")}))
@@ -2303,6 +2464,19 @@ def phase_serving_prefix(torch, np, res):
                 torch, lambda: _prefix_run(torch, eng, prompts,
                                            label + " profiled", max_new=8))
         del eng
+
+    def eager_run(label):
+        def run(eng):
+            _prefix_run(torch, eng, warm, label + " warm-up")
+            return _prefix_run(torch, eng, prompts, label)
+        return run
+    label = "serving_prefix bf16 cache=on"
+    e2e, n = _eager_check(torch, np, bf16, cfg, label, bf16_reqs, warm=False,
+                          run=eager_run(label + " eager"),
+                          prefill_chunk=CHUNK, prefix_cache=True)
+    out["bf16_cache_on_eager"] = e2e
+    out["bf16_cache_on_beside_eager"] = dict(
+        _beside(label, out["bf16_cache_on"], e2e), tokens_equal=n)
     del bf16
     on = out["bf16_cache_on"]
     # the first request misses; every later one reuses at least the prefix
@@ -2324,10 +2498,16 @@ def phase_serving_prefix(torch, np, res):
     checked, near_off = _check_tokens(torch, np, model, reqs[False])
     compared, near = _check_same_tokens(torch, np, model, reqs[True],
                                         reqs[False])
+    _, n = _eager_check(
+        torch, np, model, cfg, "serving_prefix f32 cache=on", reqs[True],
+        warm=False, prefill_chunk=CHUNK, prefix_cache=True,
+        run=lambda eng: _prefix_run(torch, eng, prompts,
+                                    "serving_prefix f32 cache=on eager"))
     out["f32"] = dict(tokens_checked_vs_dense=checked,
                       near_ties_vs_dense=near_off,
                       tokens_compared_on_vs_off=compared,
                       near_ties_on_vs_off=near,
+                      eager_tokens_equal=n,
                       cached_prefix_lens=[r.cached_prefix_len
                                           for r in reqs[True]])
     _log(f"serving_prefix f32: cache off, {checked} tokens equal the dense "
@@ -2356,11 +2536,13 @@ def _dequantized_model(torch, model, params):
 
 def phase_serving_int8(torch, np, res):
     model, cfg = _model_345m(torch)
-    eng = _engine(copy.deepcopy(model).to(torch.bfloat16), quantize="int8")
+    bf16 = copy.deepcopy(model).to(torch.bfloat16)
+    eng = _engine(bf16, quantize="int8")
     _stamp("serving_int8 bf16 engine built")
+    capture = _capture_info(eng, "serving_int8 bf16")
     _warm(eng, cfg, np)
     _stamp("serving_int8 bf16 warmed up")
-    e2e, _ = _serve_counted(torch, np, eng, cfg, "serving_int8 bf16")
+    e2e, bf16_reqs = _serve_counted(torch, np, eng, cfg, "serving_int8 bf16")
     float_e2e = res.get("serving_bf16", {})
     _log("serving_int8 bf16: " + json.dumps(
         {k: v for k, v in e2e.items() if k != "ttft_ms"}))
@@ -2374,6 +2556,10 @@ def phase_serving_int8(torch, np, res):
     _log("serving_int8 bf16, the decode window of phase serving's profile:")
     prof = _profile_engine(torch, np, eng, cfg, prefill=False)
     del eng
+    eager, n = _eager_check(torch, np, bf16, cfg, "serving_int8 bf16",
+                            bf16_reqs, quantize="int8")
+    beside = dict(_beside("serving_int8 bf16", e2e, eager), tokens_equal=n)
+    del bf16
     # f32: every token against the dense model on the dequantized weights
     _stamp("serving_int8 bf16 done")
     eng = _engine(model, quantize="int8")
@@ -2386,9 +2572,14 @@ def phase_serving_int8(torch, np, res):
     _log(f"serving_int8 f32: {checked} generated tokens equal the argmax of "
          f"the dense model on the dequantized weights (near ties, gap < "
          f"1e-3: {near})")
+    _, n = _eager_check(torch, np, model, cfg, "serving_int8 f32", reqs,
+                        warm=False, quantize="int8")
     res["serving_int8"] = dict(bf16=e2e, profile=prof, decode_split=split,
+                               capture=capture, bf16_eager=eager,
+                               beside_eager=beside,
                                f32=dict(tokens_checked=checked,
-                                        near_ties=near))
+                                        near_ties=near,
+                                        eager_tokens_equal=n))
 
 
 def _moe_launches(eng, steps, n):
@@ -2420,15 +2611,18 @@ def phase_serving_moe(torch, np, res):
     prompts = [rng.integers(0, cfg.vocab_size, (n,)).astype(np.int32)
                for n in MOE_PROMPT_LENS]
 
-    def engine(m):
+    def engine(m, aot=None):
         return MoEServingEngine(m, page_size=64, decode_buckets=(1, 2, 4, 8),
-                                device="cuda")
+                                device="cuda", aot=aot)
+    warm_lens = (50, 100, 200, 400, 60, 120, 240, 480)
     out = {}
-    eng = engine(copy.deepcopy(model).to(torch.bfloat16))
-    _warm(eng, cfg, np, lens=(50, 100, 200, 400, 60, 120, 240, 480))
+    bf16 = copy.deepcopy(model).to(torch.bfloat16)
+    eng = engine(bf16)
+    out["capture"] = _capture_info(eng, "serving_moe bf16")
+    _warm(eng, cfg, np, lens=warm_lens)
     _stamp("serving_moe bf16 warmed up")
-    e2e, _ = _serve_counted(torch, np, eng, cfg, "serving_moe bf16",
-                            prompts=prompts, launches=_moe_launches)
+    e2e, bf16_reqs = _serve_counted(torch, np, eng, cfg, "serving_moe bf16",
+                                    prompts=prompts, launches=_moe_launches)
     out["bf16"] = e2e
     _log("serving_moe bf16: " + json.dumps(
         {k: v for k, v in e2e.items() if k != "ttft_ms"}))
@@ -2449,6 +2643,18 @@ def phase_serving_moe(torch, np, res):
         raise AssertionError(f"the decode steps did not run the {route} "
                              f"dispatch: {seen}")
     del eng
+    # the eager engine on the same prompts: every token equal
+    eng = engine(bf16, aot=False)
+    _warm(eng, cfg, np, lens=warm_lens)
+    eager, got = _serve_counted(torch, np, eng, cfg, "serving_moe bf16 eager",
+                                prompts=prompts, launches=_moe_launches)
+    del eng, bf16
+    n = _same_tokens("serving_moe bf16", bf16_reqs, got)
+    _log(f"serving_moe bf16: {n} tokens of the captured engine equal the "
+         f"eager engine's")
+    out["bf16_eager"] = eager
+    out["beside_eager"] = dict(_beside("serving_moe bf16", e2e, eager),
+                               tokens_equal=n)
     _stamp("serving_moe bf16 done")
     # f32: every token against the eager model's argmax, teacher-forced
     # under the causal mask (one forward per request)

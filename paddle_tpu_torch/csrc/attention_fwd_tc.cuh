@@ -120,12 +120,15 @@ struct PagedRows {
   }
 };
 
-// the chunk prefill's K and V: pages [P, ps, nh, hd], table [B, pps]
+// the chunk prefill's K and V: pages [P, ps, nh, hd], table [B, pps], and
+// the chunk's offset, one int32 in device memory (so that one captured
+// CUDA graph serves every offset)
 struct PagedKV {
   const bf16* k;
   const bf16* v;
   const int* pt;
   int pps, ps, nh, hd;
+  const int* q_offset;
   __device__ __forceinline__ PagedRows rows(const bf16* pool, int b,
                                             int h) const {
     return {pool + (long long)h * hd, pt + (long long)b * pps, ps,
@@ -619,7 +622,8 @@ flash_fwd_tc_kernel(const FwdParams p, const StridedKV kv) {
 
 template <int D, bool FULL>
 __global__ void __launch_bounds__(32 * kSplitWarps)
-paged_prefill_tc_kernel(const FwdParams p, const PagedKV kv) {
+paged_prefill_tc_kernel(FwdParams p, const PagedKV kv) {
+  p.q_offset = *kv.q_offset;
   attend_split<D, FULL>(p, kv);
 }
 
@@ -653,20 +657,21 @@ cudaError_t launch_flash(const void* q, const void* k, const void* v, void* o,
 }
 
 // the chunk prefill: q [B, C, nh, hd] (strides q_sb, q_ss, q_sh), pages
-// [P, ps, nh, hd], table [B, pps], out a contiguous [B, C, nh, hd]
+// [P, ps, nh, hd], table [B, pps], out a contiguous [B, C, nh, hd];
+// q_offset points at the chunk's offset on the device (the kernel reads it)
 template <int D, bool FULL>
 cudaError_t launch_prefill(const void* q, const void* kp, const void* vp,
                            const void* pt, void* o, int B, int C, int nh,
                            int hd, int ps, int pps, int q_sb, int q_ss,
-                           int q_sh, int q_offset, float scale,
+                           int q_sh, const int* q_offset, float scale,
                            cudaStream_t stream) {
   // causal over the positions the table reaches: row i sees q_offset + i
   // and before
   const FwdParams p{static_cast<const bf16*>(q), static_cast<bf16*>(o),
                     nullptr, nh, nh, C, pps * ps, hd, q_sb, q_ss, q_sh,
-                    C * nh * hd, nh * hd, hd, 1, q_offset, scale};
+                    C * nh * hd, nh * hd, hd, 1, 0, scale};
   const PagedKV kv{static_cast<const bf16*>(kp), static_cast<const bf16*>(vp),
-                   static_cast<const int*>(pt), pps, ps, nh, hd};
+                   static_cast<const int*>(pt), pps, ps, nh, hd, q_offset};
   return start(paged_prefill_tc_kernel<D, FULL>, split_smem_bytes<D>(), 16,
                32 * kSplitWarps, p, kv, B, stream);
 }

@@ -6,9 +6,11 @@
 // function: a chunk of C query rows of one sequence, row i at absolute
 // position q_offset + i, attends the sequence's K/V through its page table
 // [B, pages_per_seq] into pages [P, ps, nh, d]; row i sees the positions
-// <= q_offset + i (cached prefix pages included). q_offset is a runtime
-// argument, so one build serves every chunk position and every cached
-// prefix length. num_heads == num_kv_heads, as in the TPU kernel.
+// <= q_offset + i (cached prefix pages included). q_offset is one int32
+// that the kernel reads from device memory (the TPU kernel's
+// scalar-prefetch operand), so one build, and one captured CUDA graph,
+// serve every chunk position and every cached prefix length.
+// num_heads == num_kv_heads, as in the TPU kernel.
 //
 // Numerics kept from the TPU kernel: S = Q K^T accumulated in f32, then
 // times the scale in f32; -1e30 for masked keys; an f32 online softmax;
@@ -65,8 +67,9 @@ __global__ void __launch_bounds__(kNT)
 paged_prefill_kernel(const T* __restrict__ q, const T* __restrict__ kp,
                      const T* __restrict__ vp, const int* __restrict__ pt,
                      T* __restrict__ o, int nh, int hd, int C, int ps,
-                     int pps, int q_sb, int q_ss, int q_sh, int q_offset,
-                     float scale) {
+                     int pps, int q_sb, int q_ss, int q_sh,
+                     const int* __restrict__ q_off, float scale) {
+  const int q_offset = *q_off;  // the chunk's offset, read on the device
   constexpr int DP = D + 1;
   const int rw = FULL ? D : hd;  // the rows' width in memory
   constexpr int PP = kBK + 1;
@@ -227,7 +230,7 @@ template <typename T, int D, bool FULL>
 cudaError_t launch(const void* q, const void* kp, const void* vp,
                    const void* pt, void* o, int B, int C, int nh, int hd,
                    int ps, int pps, int q_sb, int q_ss, int q_sh,
-                   int q_offset, float scale, cudaStream_t stream) {
+                   const int* q_offset, float scale, cudaStream_t stream) {
   if constexpr (std::is_same_v<T, __nv_bfloat16>) {
     return attn_fwd_tc::launch_prefill<D, FULL>(q, kp, vp, pt, o, B, C, nh,
                                                 hd, ps, pps, q_sb, q_ss, q_sh,
@@ -253,7 +256,7 @@ cudaError_t launch(const void* q, const void* kp, const void* vp,
 cudaError_t launch_masked(int dtype, const void* q, const void* kp,
                           const void* vp, const void* pt, void* o, int B,
                           int C, int nh, int hd, int ps, int pps, int q_sb,
-                          int q_ss, int q_sh, int q_offset, float scale,
+                          int q_ss, int q_sh, const int* q_offset, float scale,
                           cudaStream_t stream);
 
 }  // namespace paged_prefill

@@ -9,7 +9,7 @@ namespace paged_prefill {
 cudaError_t launch_masked(int dtype, const void* q, const void* kp,
                           const void* vp, const void* pt, void* o, int B,
                           int C, int nh, int hd, int ps, int pps, int q_sb,
-                          int q_ss, int q_sh, int q_offset, float scale,
+                          int q_ss, int q_sh, const int* q_offset, float scale,
                           cudaStream_t stream) {
   return dispatch_dtype_dim(dtype, hd, [&](auto t, auto dim) {
     using T = typename decltype(t)::type;

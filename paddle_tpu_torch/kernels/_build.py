@@ -62,7 +62,7 @@ _SIGNATURES = {
                                    _F, _P],                  # scale stream
     "ptt_paged_attention_prefill": [_P, _P, _P, _P, _P,      # q kp vp pt out
                                     _I, _I, _I, _I, _I, _I, _I,  # dtype B C nh D ps pps
-                                    _I, _I, _I, _I,          # q strides b s h, q_offset
+                                    _I, _I, _I, _P,          # q strides b s h, q_offset
                                     _F, _P],                 # scale stream
     "ptt_int8_matmul": [_P, _P, _P, _P,                      # x w scale out
                         _I, _I, _I, _I, _I, _I, _I, _I,      # dtype layout M N K x_stride vec xvec

@@ -10,7 +10,8 @@ replace the two Pallas kernels there:
   second plain version in the kernel's own form (its splits, its warps'
   states, where P is rounded and the order of the merges);
 - ``csrc/paged_attention_prefill.cu`` (``_prefill_kernel``): a prompt
-  chunk at a runtime offset, :func:`ragged_prefill_attention`, whose
+  chunk at an offset that the kernel reads from device memory (the TPU
+  kernel's scalar-prefetch operand), :func:`ragged_prefill_attention`, whose
   plain version is the XLA path :func:`paged_prefill_attention`;
   :func:`ragged_prefill_reference` is a second plain version that keeps
   the kernel's own rounding points, to hold the bf16 kernel tightly.
@@ -307,11 +308,21 @@ def paged_attention_decode(q, k_pages, v_pages, page_table, seq_lens,
 
 # ------------------------------------------------------------ chunk prefill
 
+def _rows_at(q_offset, C, device):
+    """The absolute positions ``[C, 1]`` of a chunk's rows, ``q_offset``
+    an int or a 0-d or one-element integer tensor on ``device`` (read
+    there, never on the host)."""
+    if isinstance(q_offset, torch.Tensor):
+        q_offset = q_offset.reshape(-1)[0].long()
+    return (q_offset + torch.arange(C, device=device))[:, None]
+
+
 def paged_prefill_attention(q, k_pages, v_pages, page_table, q_offset,
                             scale=None):
     """Chunk prefill attention over the pool, plain PyTorch: the JAX XLA
     path line by line. ``q`` ``[B, C, num_heads, d]``, row ``i`` at
-    absolute position ``q_offset + i``; pages and table as for decode.
+    absolute position ``q_offset + i`` (an int or a 0-d or one-element
+    integer tensor on q's device); pages and table as for decode.
     Row ``i`` attends the positions ``<= q_offset + i``; the chunk's own
     K/V must already be in the pages. The pages are gathered dense, the
     scores divided by sqrt(d) in the compute dtype (or times ``scale``),
@@ -328,7 +339,7 @@ def paged_prefill_attention(q, k_pages, v_pages, page_table, q_offset,
         v = v.repeat_interleave(g, dim=2)
     logits = torch.einsum("bsnd,btnd->bnst", q, k)
     logits = logits / math.sqrt(d) if scale is None else logits * scale
-    row = int(q_offset) + torch.arange(C, device=q.device)[:, None]
+    row = _rows_at(q_offset, C, q.device)
     col = torch.arange(t, device=q.device)[None, :]
     logits = logits.masked_fill(~(col <= row), _NEG_INF)
     probs = torch.softmax(logits.float(), -1).to(q.dtype)
@@ -344,17 +355,24 @@ def ragged_prefill_reference(q, k_pages, v_pages, page_table, q_offset,
     softmax over the blocks, S = Q.K^T in f32 times ``scale`` in f32, P =
     exp(S - m) rounded to V's dtype before P.V while l sums the unrounded
     P, O = acc / max(l, 1e-30) rounded once. ``round_p=False`` keeps P in
-    f32: a control that a bf16 limit must tell from the kernel."""
+    f32: a control that a bf16 limit must tell from the kernel.
+
+    An int offset stops the walk at the chunk's last visible position, as
+    the kernel does. A tensor offset is never read on the host, so every
+    block of the table is walked: a block past the chunk's last row is
+    masked whole, its P is 0 and its rescale 1."""
     B, C, nh, d = q.shape
     ps = k_pages.shape[1]
     if scale is None:
         scale = 1.0 / math.sqrt(d)
-    t = min(page_table.shape[1] * ps, int(q_offset) + C)
+    t = page_table.shape[1] * ps
+    if not isinstance(q_offset, torch.Tensor):
+        t = min(t, int(q_offset) + C)
     idx = page_table.long()
     k = k_pages[idx].reshape(B, -1, nh, d)[:, :t].float()
     v = v_pages[idx].reshape(B, -1, nh, d)[:, :t]
     qf = q.float()
-    row = int(q_offset) + torch.arange(C, device=q.device)[:, None]
+    row = _rows_at(q_offset, C, q.device)
     m = torch.full((B, nh, C, 1), _NEG_INF, device=q.device)
     l = torch.zeros((B, nh, C, 1), device=q.device)
     acc = torch.zeros((B, nh, C, d), device=q.device)
@@ -378,10 +396,17 @@ def _launch_prefill(q, k_pages, v_pages, page_table, q_offset, scale):
     B, C, nh, d = q.shape
     num_pages, ps, nkv, _ = k_pages.shape
     dev = q.device
+    if not isinstance(q_offset, torch.Tensor):
+        # an int offset is written to the device by a fill kernel (no copy
+        # from the host, no wait on the stream)
+        q_offset = torch.full((1,), q_offset, dtype=torch.int32, device=dev)
     for name, t in (("k_pages", k_pages), ("v_pages", v_pages),
-                    ("page_table", page_table)):
+                    ("page_table", page_table), ("q_offset", q_offset)):
         if t.device != dev:
             raise ValueError(f"{name} on {t.device}, q on {dev}")
+    if q_offset.dtype != torch.int32 or q_offset.numel() != 1:
+        raise TypeError(f"q_offset must be one int32 on the device, got "
+                        f"{q_offset.dtype} {tuple(q_offset.shape)}")
     if q.dtype not in _DTYPE_CODES or k_pages.dtype != q.dtype \
             or v_pages.dtype != q.dtype:
         raise TypeError(f"chunk prefill kernel takes float32 or bfloat16 "
@@ -419,7 +444,7 @@ def _launch_prefill(q, k_pages, v_pages, page_table, q_offset, scale):
             q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
             page_table.data_ptr(), out.data_ptr(), _DTYPE_CODES[q.dtype], B,
             C, nh, d, ps, page_table.shape[1], q.stride(0), q.stride(1),
-            q.stride(2), int(q_offset), float(scale),
+            q.stride(2), q_offset.data_ptr(), float(scale),
             torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "ragged_prefill_attention")
     prefill_launches += 1
@@ -433,12 +458,16 @@ def ragged_prefill_attention(q, k_pages, v_pages, page_table, q_offset,
     walks each sequence's pages up to the last position its chunk can see
     and never gathers the pool dense; the scale multiplies the f32 scores
     and P is rounded to V's dtype before P.V, as in the TPU kernel. Needs
-    ``num_heads == num_kv_heads``. ``q_offset`` is an int (>= 0)."""
+    ``num_heads == num_kv_heads``. ``q_offset`` (>= 0) is an int, or an
+    int32 tensor of one element on q's device, which the kernel reads
+    there: a CUDA graph captured around the call then serves every offset
+    written into that tensor. A tensor's value is not checked (that would
+    wait for the device)."""
     nh, nkv = q.shape[2], k_pages.shape[2]
     if nh != nkv:
         raise ValueError(f"ragged_prefill_attention needs num_heads ({nh}) "
                          f"== num_kv_heads ({nkv})")
-    if int(q_offset) < 0:
+    if not isinstance(q_offset, torch.Tensor) and int(q_offset) < 0:
         raise ValueError(f"q_offset {q_offset} must be >= 0")
     ts = (q, k_pages, v_pages, page_table)
     if all(t.device.type == "cpu" for t in ts):

@@ -31,6 +31,15 @@ Modes, alone or combined:
   the bucketed prefill dequantizes one layer at a time and runs the
   float block.
 
+``aot`` (the JAX engine's ahead-of-time bucket closure): on CUDA, by
+default, :meth:`ServingEngine.compile_buckets` captures every decode
+bucket's step and every prefill bucket's (or the one chunk program) as a
+CUDA graph (:mod:`.graphs`) before the engine serves, and each step
+replays its bucket's graph. ``aot=False`` runs the step functions eagerly,
+as the CPU always does. The step functions take their per-request scalars
+(true length, chunk offset and length) as device tensors, so a graph
+serves every request of its bucket.
+
 The JAX engine reaches the chunk-prefill and int8 kernels through its
 auto-fusion rewrite, on by default; the port's step functions call them
 where the rewrite puts them. Disaggregated prefill, ``autofuse`` and
@@ -39,6 +48,7 @@ where the rewrite puts them. Disaggregated prefill, ``autofuse`` and
 from __future__ import annotations
 
 import math
+import time
 
 import numpy as np
 import torch
@@ -53,6 +63,7 @@ from ..models.gpt import (GPTConfig, _ln, flash_attention_gate, gpt_block,
                           sample_logits, stack_gpt_weights)
 from ..quantization.export import (is_quantized,
                                    quantize_stacked_gpt_weights)
+from .graphs import BucketGraphs, unpack
 from .kv_pool import PagePool
 from .prefix_cache import PrefixCache
 
@@ -117,6 +128,14 @@ def _dequant_block(p, dt):
         bshape = (1,) * (q.dim() - s.dim()) + tuple(s.shape)
         return (q.float() * s.reshape(bshape)).to(dt)
     return {k: dq(v) for k, v in p.items()}
+
+
+def _row_before(x, n):
+    """``x[:, n - 1:n]`` of ``x [1, S, H]`` (row 0 when ``n <= 0``), for
+    ``n`` an int or a one-element integer tensor on x's device, picked on
+    the device (nothing waits for the host)."""
+    idx = torch.as_tensor(n, device=x.device).reshape(1).long()
+    return x.index_select(1, (idx - 1).clamp_min(0))
 
 
 def _compute_dtype(params, compute_dtype):
@@ -194,9 +213,10 @@ def prefill_fn(params, k_pages, v_pages, ids, true_len, dest_rows,
     """Prefill one request (batch 1, prompt ``ids [1, S]`` padded to a
     bucket length): full causal forward, each layer's K/V scattered into
     the pool at ``dest_rows [S]`` (padding rows → sink page), first token
-    sampled from position ``true_len - 1``. Int8 leaves are dequantized one
-    layer at a time for the float block; the logits run the int8 kernel.
-    Updates the pages in place and returns the token ``[1]`` int32."""
+    sampled from position ``true_len - 1`` (an int or a one-element int
+    tensor on the device). Int8 leaves are dequantized one layer at a time
+    for the float block; the logits run the int8 kernel. Updates the pages
+    in place and returns the token ``[1]`` int32."""
     blocks, wte, wpe = params["blocks"], params["wte"], params["wpe"]
     dt = _compute_dtype(params, compute_dtype)
     s = ids.shape[1]
@@ -213,8 +233,8 @@ def prefill_fn(params, k_pages, v_pages, ids, true_len, dest_rows,
             0, rows, k[0].to(k_pages.dtype))
         v_pages[i].view(np_ * ps, nkv, d).index_copy_(
             0, rows, v[0].to(v_pages.dtype))
-    last = max(int(true_len) - 1, 0)
-    h_last = _ln(h[:, last:last + 1], params["lnf_w"], params["lnf_b"], eps)
+    h_last = _ln(_row_before(h, true_len), params["lnf_w"], params["lnf_b"],
+                 eps)
     return sample_logits(_logits(h_last, wte), generator, temperature,
                          top_k).to(torch.int32)
 
@@ -230,15 +250,18 @@ def chunk_prefill_fn(params, k_pages, v_pages, ids, q_offset, chunk_len,
     q_offset + i``, cached prefix pages included, so this one program is
     both the chunked-prefill tick and the prefix-cache suffix prefill),
     and sample a token at local index ``chunk_len - 1`` (meaningful on the
-    last chunk only). ``q_offset``/``chunk_len`` are ints. Updates the
-    pages in place and returns the token ``[1]`` int32."""
+    last chunk only). ``q_offset``/``chunk_len`` are ints or one-element
+    int tensors on the device, read there (the chunk kernel reads the
+    offset from device memory), so one captured graph serves every chunk.
+    Updates the pages in place and returns the token ``[1]`` int32."""
     blocks, wte, wpe = params["blocks"], params["wte"], params["wpe"]
     dt = _compute_dtype(params, compute_dtype)
     C = ids.shape[1]
-    q_offset = int(q_offset)
+    q_offset = torch.as_tensor(q_offset, dtype=torch.int32,
+                               device=ids.device).reshape(1)
     max_pos = (wpe["q"] if is_quantized(wpe) else wpe).shape[0]
-    positions = (q_offset + torch.arange(C, device=ids.device)).clamp_max(
-        max_pos - 1)
+    positions = (q_offset.long() + torch.arange(C, device=ids.device)
+                 ).clamp_max(max_pos - 1)
     x = (_emb(wte, ids.long(), dt) + _emb(wpe, positions, dt)[None]).to(dt)
     rows = dest_rows.long()
     page_table = page_table.to(torch.int32)
@@ -248,8 +271,8 @@ def chunk_prefill_fn(params, k_pages, v_pages, ids, q_offset, chunk_len,
     for i in range(k_pages.shape[0]):
         x = _paged_layer(_layer(blocks, i), x, rows, k_pages[i], v_pages[i],
                          attend, eps)
-    last = max(int(chunk_len) - 1, 0)
-    h_last = _ln(x[:, last:last + 1], params["lnf_w"], params["lnf_b"], eps)
+    h_last = _ln(_row_before(x, chunk_len), params["lnf_w"], params["lnf_b"],
+                 eps)
     return sample_logits(_logits(h_last, wte), generator, temperature,
                          top_k).to(torch.int32)
 
@@ -264,15 +287,28 @@ def default_prefill_buckets(page_size, max_seq_len):
     return tuple(sorted(set(buckets)))
 
 
+def _resolve_aot(aot, device):
+    """``aot=None`` → capture on CUDA, run eagerly on the CPU; ``aot=True``
+    needs CUDA (CUDA graphs)."""
+    if aot is None:
+        return device.type == "cuda"
+    if aot and device.type != "cuda":
+        raise ValueError(f"aot=True captures CUDA graphs; device {device} "
+                         f"runs eagerly (aot=False)")
+    return bool(aot)
+
+
 class ServingEngine:
     """See the module docstring. ``model`` is a GPT model (or anything
     :func:`stack_gpt_weights` takes); its weights' dtype is the compute
-    dtype. ``device`` is CUDA unless ``"cpu"`` is asked for."""
+    dtype. ``device`` is CUDA unless ``"cpu"`` is asked for. ``aot`` (None:
+    True on CUDA) captures the bucket programs as CUDA graphs at
+    construction (:meth:`compile_buckets`)."""
 
     def __init__(self, model, config=None, *, page_size=16, num_pages=None,
                  max_seq_len=None, decode_buckets=(1, 2, 4, 8),
                  prefill_buckets=None, temperature=0.0, top_k=0, seed=0,
-                 use_flash=None, device=None,
+                 use_flash=None, device=None, aot=None,
                  quantize=None, prefill_chunk=None, prefix_cache=False,
                  disaggregated=False, autofuse=None):
         for name, value in (("disaggregated", disaggregated),
@@ -284,6 +320,7 @@ class ServingEngine:
             raise ValueError(f"quantize={quantize!r}: only 'int8' is "
                              f"supported")
         self.device = resolve_device(device)
+        self.aot = _resolve_aot(aot, self.device)
         gpt = model.gpt if hasattr(model, "gpt") else model
         self.cfg: GPTConfig = config or gpt.config
         cfg = self.cfg
@@ -340,6 +377,11 @@ class ServingEngine:
         self._cached_len: dict = {}    # seq_id -> prefix tokens reused
         # each sequence's pending token: sampled, its K/V not yet cached
         self._last_token: dict = {}
+        self._programs = self._step_programs()
+        self._graphs = None
+        self.compile_s = 0.0
+        if self.aot:
+            self.compile_buckets()
 
     @classmethod
     def from_checkpoint(cls, path, config, **kw):
@@ -357,6 +399,12 @@ class ServingEngine:
             leaves += [v["q"], v["s"]] if is_quantized(v) else [v]
         return int(sum(t.numel() * t.element_size() for t in leaves))
 
+    def decode_signatures(self) -> set:
+        """The closed set of decode step shapes: ``(bucket,
+        pages_per_seq)`` per decode bucket."""
+        return {(b, self.pool.max_pages_per_seq)
+                for b in self.decode_buckets}
+
     def prefill_signatures(self) -> set:
         """The closed set of prefill shapes this engine runs: ``("chunk",
         C, pages_per_seq)`` when chunked, else ``(1, bucket)`` per prefill
@@ -366,9 +414,87 @@ class ServingEngine:
                      self.pool.max_pages_per_seq)}
         return {(1, sb) for sb in self.prefill_buckets}
 
+    # ---------------------------------------------------- bucket programs
+    def _step_programs(self):
+        """The input shapes of every step program this engine serves, by
+        key: ``("decode", bucket)``, and ``("prefill", bucket)`` or the one
+        ``("chunk", C)``. The inputs are int32 tensors (views of one flat
+        upload); ``self._<kind>_call(*inputs)`` runs the step and returns
+        its tokens on the device. (Only shapes are kept on the engine: a
+        bound method kept there would make the engine a reference cycle,
+        freed by the garbage collector at any later moment, also in the
+        middle of another engine's capture, which a graph's destruction
+        invalidates.)"""
+        pps = self.pool.max_pages_per_seq
+        progs = {("decode", b): ((b,), (b,), (b, pps), (b,))
+                 for b in self.decode_buckets}
+        if self.prefill_chunk is not None:
+            C = self.prefill_chunk
+            progs["chunk", C] = ((1, C), (1,), (1,), (1, pps), (C,))
+        else:
+            for sb in self.prefill_buckets:
+                progs["prefill", sb] = ((1, sb), (1,), (sb,))
+        return progs
+
+    def compile_buckets(self):
+        """Capture every decode bucket's step and every prefill bucket's
+        (on a chunked engine the one chunk program instead) as a CUDA
+        graph, so that serving replays them (the JAX engine's AOT
+        compile). Adds the wall time to ``compile_s``. The engine's
+        generator and the kernels' launch counters are left where they
+        were. A capture that fails raises; nothing falls back to eager
+        execution. The prefix cache's copy-on-write page copy (two
+        ``copy_`` calls) is not captured."""
+        if self.device.type != "cuda":
+            raise ValueError(f"compile_buckets captures CUDA graphs; device "
+                             f"{self.device} runs eagerly")
+        t0 = time.perf_counter()
+        if self._graphs is None:
+            self._graphs = BucketGraphs(
+                self.device,
+                self._generator if self.temperature > 0 else None)
+        state = self._generator.get_state()
+        try:
+            for key, shapes in self._programs.items():
+                if key not in self._graphs:
+                    self._graphs.capture(key, shapes,
+                                         getattr(self, f"_{key[0]}_call"))
+        finally:
+            self._generator.set_state(state)
+        torch.cuda.synchronize(self.device)
+        self.compile_s += time.perf_counter() - t0
+
+    def graph_pool_bytes(self):
+        """Device bytes held by the captured graphs' memory pool (0 with
+        none captured; None where the allocator does not name pools)."""
+        return 0 if self._graphs is None else self._graphs.pool_bytes()
+
+    def _upload(self, key, flat):
+        """The int32 inputs of program ``key``, packed in one flat array:
+        staged into the static inputs of its graph when it has one, else
+        copied to the device (a blocking copy, which waits for the
+        stream). Returns the inputs, views of one buffer."""
+        graph = None if self._graphs is None else self._graphs.get(key)
+        if graph is not None:
+            return graph.stage(flat)
+        return unpack(self._put(flat), self._programs[key])
+
+    def _run(self, key, inputs):
+        """Program ``key`` on ``inputs``: its graph replayed when they are
+        the graph's static inputs, else its step function run eagerly."""
+        graph = None if self._graphs is None else self._graphs.get(key)
+        if graph is not None and inputs is graph.inputs:
+            return graph.replay()
+        with torch.no_grad():
+            return getattr(self, f"_{key[0]}_call")(*inputs)
+
     def status(self) -> dict:
-        """Engine-side JSON snapshot: weights, buckets, modes, pool
-        occupancy and the prefix cache."""
+        """Engine-side JSON snapshot: weights, buckets, modes, capture
+        accounting (``compile_s``; ``aot_programs``, the graphs held: one a
+        decode bucket, plus one a prefill bucket or the one chunk program;
+        with the prefix cache one fewer than the JAX engine counts, whose
+        copy-on-write page copy is a program of its own), pool occupancy and
+        the prefix cache."""
         st = {
             "device": str(self.device),
             "compute_dtype": str(self.compute_dtype).replace("torch.", ""),
@@ -380,6 +506,8 @@ class ServingEngine:
                                       self._use_flash.items() if on],
             "prefill_chunk": self.prefill_chunk,
             "max_seq_len": self.max_seq_len,
+            "compile_s": round(self.compile_s, 3),
+            "aot_programs": len(self._graphs or ()),
             "pool": self.pool.stats(),
         }
         if self.prefix_cache is not None:
@@ -445,17 +573,30 @@ class ServingEngine:
         n = int(prompt.shape[0])
         sb = self.prefill_bucket(n)
         self.pool.alloc(seq_id, n)
-        ids = np.zeros((1, sb), np.int32)
-        ids[0, :n] = prompt
-        rows = self.pool.prefill_rows(seq_id, sb)
-        with torch.no_grad():
-            tok = prefill_fn(
-                self.params, self.pool.k_pages, self.pool.v_pages,
-                self._put(ids), n, self._put(rows), self._generator,
-                use_flash=self._use_flash[sb], **self._step_kw())
-        tok = int(tok[0])
+        flat = np.zeros(2 * sb + 1, np.int32)      # ids, true_len, rows
+        flat[:n] = prompt
+        flat[sb] = n
+        flat[sb + 1:] = self.pool.prefill_rows(seq_id, sb)
+        key = ("prefill", sb)
+        tok = int(self._run(key, self._upload(key, flat))[0])
         self._last_token[seq_id] = tok
         return tok
+
+    def _prefill_call(self, ids, true_len, rows):
+        return prefill_fn(
+            self.params, self.pool.k_pages, self.pool.v_pages, ids, true_len,
+            rows, self._generator, use_flash=self._use_flash[ids.shape[1]],
+            **self._step_kw())
+
+    def _chunk_call(self, ids, q_offset, chunk_len, table, rows):
+        return chunk_prefill_fn(
+            self.params, self.pool.k_pages, self.pool.v_pages, ids, q_offset,
+            chunk_len, table, rows, self._generator, **self._step_kw())
+
+    def _decode_call(self, tokens, positions, table, lens):
+        return decode_step_fn(
+            self.params, self.pool.k_pages, self.pool.v_pages, tokens,
+            positions, table, lens, self._generator, **self._step_kw())
 
     # ----------------------------------------- chunked / cached prefill
     def prefill_begin(self, seq_id, prompt_ids) -> int:
@@ -511,15 +652,15 @@ class ServingEngine:
         C = self.prefill_chunk
         start, n = st["pos"], st["n"]
         clen = min(C, n - start)
-        ids = np.zeros((1, C), np.int32)
-        ids[0, :clen] = st["prompt"][start:start + clen]
-        rows = self.pool.chunk_rows(seq_id, start, C)
-        table = self.pool.table_array([seq_id])
-        with torch.no_grad():
-            tok = chunk_prefill_fn(
-                self.params, self.pool.k_pages, self.pool.v_pages,
-                self._put(ids), start, clen, self._put(table),
-                self._put(rows), self._generator, **self._step_kw())
+        pps = self.pool.max_pages_per_seq
+        # ids, q_offset, chunk_len, page table, rows
+        flat = np.zeros(2 * C + 2 + pps, np.int32)
+        flat[:clen] = st["prompt"][start:start + clen]
+        flat[C:C + 2] = start, clen
+        flat[C + 2:C + 2 + pps] = self.pool.table_array([seq_id])[0]
+        flat[C + 2 + pps:] = self.pool.chunk_rows(seq_id, start, C)
+        key = ("chunk", C)
+        tok = self._run(key, self._upload(key, flat))
         st["pos"] = start + clen
         if st["pos"] < n:
             return clen, False, None
@@ -548,8 +689,9 @@ class ServingEngine:
 
     def _decode_inputs(self, seq_ids, bucket=None):
         """Check the bucket and upload a decode step's host state: the
-        last tokens, positions, page table and lengths ``[bucket, ...]``.
-        The uploads are blocking copies, so they wait for the stream."""
+        last tokens, positions, page table and lengths ``[bucket, ...]``,
+        in one copy (:meth:`_upload`: into the bucket's graph inputs, or a
+        blocking copy that waits for the stream)."""
         n = len(seq_ids)
         bucket = self.decode_bucket(n) if bucket is None else bucket
         if bucket not in self.decode_buckets:
@@ -563,15 +705,14 @@ class ServingEngine:
         tokens = np.asarray([self._last_token.get(sid, 0) for sid in slots],
                             np.int32)
         positions = np.maximum(lens - 1, 0).astype(np.int32)
-        return tuple(self._put(a) for a in (tokens, positions, table, lens))
+        flat = np.concatenate([tokens, positions, table.reshape(-1), lens])
+        return self._upload(("decode", bucket), flat)
 
     def _launch_decode(self, inputs):
-        """Launch one decode step on uploaded ``inputs``; returns the next
-        tokens ``[bucket]`` on the device without waiting for them."""
-        with torch.no_grad():
-            return decode_step_fn(
-                self.params, self.pool.k_pages, self.pool.v_pages, *inputs,
-                self._generator, **self._step_kw())
+        """Launch one decode step on uploaded ``inputs`` (replaying the
+        bucket's graph when they are its inputs); returns the next tokens
+        ``[bucket]`` on the device without waiting for them."""
+        return self._run(("decode", inputs[0].shape[0]), inputs)
 
     def release(self, seq_id, token_ids=None):
         """Free a finished sequence. With a prefix cache, ``token_ids``

@@ -25,7 +25,11 @@ incremental decode equals eager full-recompute generation
 (:class:`~paddle_tpu_torch.models.ernie.ErnieMoeGenerator`).
 
 Greedy by default; the pool's tensors are updated in place; the
-continuous-batching scheduler drives this engine unchanged.
+continuous-batching scheduler drives this engine unchanged. ``aot`` is
+the GPT engine's: on CUDA, by default, every decode bucket's step and
+every prefill bucket's is captured as a CUDA graph and replayed (the MoE
+dispatch in one launch at decode sizes and in three passes for prefills of
+more than 128 tokens, both inside the graphs).
 ``from_checkpoint`` and ``autofuse`` are not ported and raise
 ``NotImplementedError``.
 """
@@ -46,7 +50,8 @@ from ..models.ernie import (ErnieMoeConfig, ErnieMoeForPretraining,
                             stack_ernie_moe_weights)
 from ..models.gpt import sample_logits
 from ..nn import layer_norm
-from .engine import ServingEngine, _to_device, default_prefill_buckets
+from .engine import (ServingEngine, _resolve_aot, _row_before, _to_device,
+                     default_prefill_buckets)
 from .kv_pool import PagePool
 
 __all__ = ["MoEServingEngine", "moe_decode_step_fn", "moe_prefill_fn"]
@@ -153,8 +158,9 @@ def moe_prefill_fn(params, k_pages, v_pages, ids, true_len, dest_rows,
     layer's K/V scattered into the pool at ``dest_rows [S]`` (padding rows
     → the sink page), then the first token sampled at ``true_len - 1``. MoE
     capacity is the bucket length: padded positions route too but cannot
-    take a real token's slot. Updates the pages in place and returns the
-    token ``[1]`` int32."""
+    take a real token's slot. ``true_len`` is an int or a one-element int
+    tensor on the device. Updates the pages in place and returns the token
+    ``[1]`` int32."""
     s = ids.shape[1]
     nkv, d = k_pages.shape[3:]
     x = params["wte"][ids.long()] \
@@ -176,8 +182,7 @@ def moe_prefill_fn(params, k_pages, v_pages, ids, true_len, dest_rows,
         x = _eln(x + o, p["ln1_w"], p["ln1_b"], eps)
         x = _eln(x + _ffn(x, kind, p, top_k, use_fused_moe), p["ln2_w"],
                  p["ln2_b"], eps)
-    last = max(int(true_len) - 1, 0)
-    logits = _head_logits(x[:, last:last + 1], params["head"], eps)
+    logits = _head_logits(_row_before(x, true_len), params["head"], eps)
     return sample_logits(logits, generator, temperature,
                          topk_sample).to(torch.int32)
 
@@ -200,25 +205,35 @@ class MoEServingEngine:
     ``"cpu"`` is asked for. Greedy by default."""
 
     # one implementation of the bucket lookups, the prompt check, the
-    # upload and the decode step's host side across the engines
+    # upload, the decode step's host side and the bucket graphs across the
+    # engines
     prefill_bucket = ServingEngine.prefill_bucket
     decode_bucket = ServingEngine.decode_bucket
+    decode_signatures = ServingEngine.decode_signatures
     _check_prompt = ServingEngine._check_prompt
     _put = ServingEngine._put
     _decode_inputs = ServingEngine._decode_inputs
+    _launch_decode = ServingEngine._launch_decode
     decode = ServingEngine.decode
+    prefill = ServingEngine.prefill          # bucketed: no prefill_chunk
+    _step_programs = ServingEngine._step_programs
+    compile_buckets = ServingEngine.compile_buckets
+    graph_pool_bytes = ServingEngine.graph_pool_bytes
+    _upload = ServingEngine._upload
+    _run = ServingEngine._run
 
     def __init__(self, model, config: ErnieMoeConfig | None = None, *,
                  page_size=16, num_pages=None, max_seq_len=None,
                  decode_buckets=(1, 2, 4, 8), prefill_buckets=None,
                  temperature=0.0, top_k=0, seed=0, use_fused_moe=True,
-                 autofuse=None, device=None):
+                 autofuse=None, device=None, aot=None):
         if not isinstance(model, ErnieMoeForPretraining):
             raise TypeError("MoEServingEngine needs ErnieMoeForPretraining")
         if autofuse:
             raise NotImplementedError(
                 f"autofuse={autofuse!r} is not ported yet ({_ITEM})")
         self.device = resolve_device(device)
+        self.aot = _resolve_aot(aot, self.device)
         self.cfg = config or model.ernie.config
         cfg = self.cfg
         params, self.kinds = stack_ernie_moe_weights(model)
@@ -253,6 +268,11 @@ class MoEServingEngine:
                              max_seq_len=max_seq_len, device=self.device)
         self._generator = make_generator(seed, self.device)
         self._last_token: dict = {}
+        self._programs = self._step_programs()
+        self._graphs = None
+        self.compile_s = 0.0
+        if self.aot:
+            self.compile_buckets()
 
     @classmethod
     def from_checkpoint(cls, path, config: ErnieMoeConfig, **kw):
@@ -270,6 +290,8 @@ class MoEServingEngine:
                        for t in _leaves(self.params)))
 
     def status(self) -> dict:
+        """Engine-side JSON snapshot; ``aot_programs`` counts the CUDA
+        graphs held (one a decode bucket and one a prefill bucket)."""
         return {
             "model": "ernie_moe",
             "device": str(self.device),
@@ -283,6 +305,8 @@ class MoEServingEngine:
             "decode_buckets": list(self.decode_buckets),
             "prefill_buckets": list(self.prefill_buckets),
             "max_seq_len": self.max_seq_len,
+            "compile_s": round(self.compile_s, 3),
+            "aot_programs": len(self._graphs or ()),
             "pool": self.pool.stats(),
         }
 
@@ -293,32 +317,15 @@ class MoEServingEngine:
                     topk_sample=self.top_k,
                     use_fused_moe=self.use_fused_moe)
 
-    def prefill(self, seq_id, prompt_ids) -> int:
-        """Allocate pages for ``prompt_ids``, run the bucketed prefill,
-        return the first generated token."""
-        prompt = self._check_prompt(prompt_ids)
-        n = int(prompt.shape[0])
-        sb = self.prefill_bucket(n)
-        self.pool.alloc(seq_id, n)
-        ids = torch.zeros((1, sb), dtype=torch.int32)
-        ids[0, :n] = torch.from_numpy(prompt)
-        rows = self.pool.prefill_rows(seq_id, sb)
-        with torch.no_grad():
-            tok = moe_prefill_fn(
-                self.params, self.pool.k_pages, self.pool.v_pages,
-                ids.to(self.device), n, self._put(rows), self._generator,
-                **self._step_kw())
-        tok = int(tok[0])
-        self._last_token[seq_id] = tok
-        return tok
+    def _prefill_call(self, ids, true_len, rows):
+        return moe_prefill_fn(
+            self.params, self.pool.k_pages, self.pool.v_pages, ids, true_len,
+            rows, self._generator, **self._step_kw())
 
-    def _launch_decode(self, inputs):
-        """Launch one decode step on uploaded ``inputs``; returns the next
-        tokens ``[bucket]`` on the device without waiting for them."""
-        with torch.no_grad():
-            return moe_decode_step_fn(
-                self.params, self.pool.k_pages, self.pool.v_pages, *inputs,
-                self._generator, **self._step_kw())
+    def _decode_call(self, tokens, positions, table, lens):
+        return moe_decode_step_fn(
+            self.params, self.pool.k_pages, self.pool.v_pages, tokens,
+            positions, table, lens, self._generator, **self._step_kw())
 
     def release(self, seq_id, token_ids=None):
         """Free a finished sequence (``token_ids`` is accepted for the

@@ -84,23 +84,33 @@ def _inputs(torch, seed):
     return (q, k, v), pre
 
 
-def _errors(torch, fa, pa, inputs):
+def _errors(torch, fa, pa, inputs, prefill=True):
     rows = []
     for (q, k, v), (pq, kp, vp, pt) in inputs:
         o, lse = fa.flash_attention_fwd(q, k, v, True)
         o_ref, lse_ref = fa.flash_attention_reference(q, k, v, True)
         err, bias, ok = cs._check("flash", o, o_ref, "bfloat16")
         lse_err = (lse - lse_ref).abs().max().item()
-        row, _, pok = cs._prefill_errors(torch, pa, "bfloat16", pq, kp, vp,
-                                         pt, PREFILL["off"])
-        rows.append(dict(flash=dict(max_abs_err=err, bias=bias,
-                                    lse_err=lse_err,
-                                    ok=ok and lse_err <= 1e-3),
-                         prefill=dict(row, ok=pok)))
+        row = dict(flash=dict(max_abs_err=err, bias=bias, lse_err=lse_err,
+                              ok=ok and lse_err <= 1e-3))
+        if prefill:
+            pre, _, pok = cs._prefill_errors(torch, pa, "bfloat16", pq, kp,
+                                             vp, pt, PREFILL["off"])
+            row["prefill"] = dict(pre, ok=pok)
+        rows.append(row)
     return rows
 
 
-def _times(torch, fa, pa, mma_sync):
+def _offset_by_value(src):
+    """Whether the chunk prefill's C entry in the sources ``src`` takes its
+    offset as an int (older trees) rather than a device pointer, which
+    this tree's wrapper passes: such a tree's chunk prefill is not
+    measured."""
+    text = (Path(src) / "paged_attention_prefill.cu").read_text()
+    return "const void* q_offset" not in text
+
+
+def _times(torch, fa, pa, mma_sync, prefill=True):
     out = {}
     gen = torch.Generator(device="cuda").manual_seed(7)
     q, k, v = (torch.randn(1, 1024, 8, 128, device="cuda", generator=gen)
@@ -119,18 +129,22 @@ def _times(torch, fa, pa, mma_sync):
             out["flash_training_mma_sync_ms"] = cs._time_held_ms(
                 torch, lambda: fa.flash_attention_fwd(tq, tk, tv, True), 20)
     del qkv, tq, tk, tv
+    if not prefill:
+        return out
     p = PREFILL
     pools = [cs._prefill_case(torch, gen, "bfloat16", p["B"], p["C"],
                               p["nh"], p["d"], p["ps"], p["pps"])
              for _ in range(24)]
     step = [0]
 
+    off = torch.full((1,), p["off"], dtype=torch.int32, device="cuda")
+
     def run():
         i = step[0] % len(pools)
         step[0] += 1
         _, kp, vp, _ = pools[i]
         return pa.ragged_prefill_attention(pools[0][0], kp, vp, pools[0][3],
-                                           p["off"])
+                                           off)
     out["prefill_serving_ms"] = cs._time_held_ms(torch, run, 100)
     return out
 
@@ -168,26 +182,31 @@ def _measure(torch, fa, pa, _build, name, src, inputs):
     _build._BUILD_DIR = ROOT / "build" / "attn_fwd_stats" / name
     _build._lib = None
     _build.build(force=True)
+    prefill = not _offset_by_value(src)
     if name == "parent":
-        _load_older(_build, ("ptt_flash_attention_fwd",
-                             "ptt_paged_attention_prefill"))
+        _load_older(_build, ("ptt_flash_attention_fwd",)
+                    + (("ptt_paged_attention_prefill",) if prefill else ()))
+        if not prefill:
+            cs._log("parent: its chunk prefill takes the offset by value, "
+                    "so it is not measured")
     ptxas = {k: list(v) for k, v in cs._ptxas_kernels(
         _build.build_log["ptxas"]).items()
         if re.search(r"(flash_fwd|paged_prefill)\w*kernelI(13__nv_bfloat16)?"
                      r"Li128E(Lb1E|Li[12]E)", k)}
-    rows = _errors(torch, fa, pa, inputs)
-    times = _times(torch, fa, pa, mma_sync=name != "parent")
+    rows = _errors(torch, fa, pa, inputs, prefill)
+    times = _times(torch, fa, pa, mma_sync=name != "parent", prefill=prefill)
     over = {kind: sum(not r[kind]["ok"] for r in rows)
-            for kind in ("flash", "prefill")}
+            for kind in ("flash", "prefill") if kind in rows[0]}
     cs._log(f"{name}: " + ", ".join(f"{k} {v:.4f}" for k, v in times.items())
             + f"; seeds over a limit (of {len(rows)}): {over}; flash max "
             f"err {max(r['flash']['max_abs_err'] for r in rows):.3e}, "
             f"bias up to {max(abs(r['flash']['bias']) for r in rows):.2e}; "
-            f"prefill tiled rms "
-            + "/".join(f"{r['prefill']['tiled']['rms']:.2e}" for r in rows)
-            + ", share up to "
-            f"{max(r['prefill']['tiled']['share'] for r in rows):.2e}; "
-            "ptxas (D = 128, full): " + "; ".join(
+            + ("prefill tiled rms "
+               + "/".join(f"{r['prefill']['tiled']['rms']:.2e}" for r in rows)
+               + ", share up to "
+               f"{max(r['prefill']['tiled']['share'] for r in rows):.2e}; "
+               if prefill else "")
+            + "ptxas (D = 128, full): " + "; ".join(
                 f"{_short(k)} {v[0]} regs, spills {v[1]}/{v[2]} B"
                 for k, v in sorted(ptxas.items())))
     return dict(seeds=rows, times=times, over=over, ptxas_d128=ptxas)
