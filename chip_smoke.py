@@ -104,10 +104,16 @@ Twelve phases, one result per line:
    (gather path, plain attention), teacher-forced under the causal mask;
 8. ``training`` — the training main path: ``GPTHybridTrainStep`` on
    GPT-345M at full width (B = 12, S = 1024, bf16 compute, f32 masters and
-   moments, ``remat="dots"``), 3 warm-up and 5 timed steps on one repeated
-   batch (tokens/s, step time, MFU, peak memory, every loss, and the flash
-   kernels' launches per step, checked exactly), then one step split into
-   forward + backward and AdamW by CUDA events and one step under
+   moments, ``remat="dots"``) on one repeated batch. First 5 eager steps
+   (``_eager_step()``; step time, host issue, peak memory), freed; then
+   the step as it runs on CUDA, captured as one CUDA graph by its first
+   call (that call's time, the capture's, graphs held, pool bytes), 5
+   steps whose losses and masters must equal the eager run's bit for bit,
+   then 5 timed replays (tokens/s, step time, host staging + launch, MFU,
+   peak memory, every loss, and the flash kernels' launches per step,
+   counted through replays and checked exactly); one captured step
+   between CUDA events (device time against host issue), the eager
+   step's forward + backward against AdamW, and one captured step under
    ``torch.profiler``. Then, in f32 at full width and 4 layers, the
    kernel path against the plain attention path, and ``remat="dots"``
    against no remat: first-step gradients and three steps of losses.
@@ -231,7 +237,10 @@ PREFILL_TOL = {("xla", "float32"): (4e-6, 2e-6),
                ("tiled", "bfloat16"): (2 ** -7, 1e-4)}
 
 # the trainer: bench_gpt's "345m" row (B = 12, S = 1024, remat "dots")
-TRAIN_B, TRAIN_S, WARMUP_STEPS, TIMED_STEPS = 12, 1024, 3, 5
+TRAIN_B, TRAIN_S, TIMED_STEPS = 12, 1024, 5
+# the captured step against the eager one: this many steps from one seed,
+# every loss and every master bit-equal
+GRAPH_CHECK_STEPS = 5
 # f32 trainer checks at 4 layers: each gradient's |a - b| / |b| (norms)
 # and the loss of 3 steps. Kernel vs plain attention: f32 on both, sums in
 # other orders. "dots" vs no remat: the recompute repeats the same
@@ -2704,16 +2713,40 @@ def _flash_counts():
     return fa.launches, fa.dq_launches, fa.dkv_launches
 
 
+def _masters(torch, step):
+    """A copy of the step's masters, by name."""
+    from paddle_tpu_torch.models.gpt import _tree_items
+    return {".".join(k): v.detach().clone()
+            for k, v in _tree_items(step.params)}
+
+
+def _train_steps(torch, step, ids, labels, n):
+    """``n`` steps: each loss, the wall time of each step to its loss on
+    the host, and the host time of each call alone (staging and launch on
+    a captured step)."""
+    losses, walls, issues = [], [], []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        loss = step(ids, labels)
+        t1 = time.perf_counter()
+        losses.append(loss.item())
+        walls.append(time.perf_counter() - t0)
+        issues.append(t1 - t0)
+    return losses, walls, issues
+
+
 def _train_main(torch, np, res):
-    """The training main path at GPT-345M width, bf16, remat "dots"."""
+    """The training main path at GPT-345M width, bf16, remat "dots": the
+    eager step's first steps as the yardstick, then the captured step."""
     from paddle_tpu_torch.kernels import flash_attention as fa
     from paddle_tpu_torch.models.gpt import (
-        GPTForPretraining, GPTHybridTrainStep, GPTModel, gpt_345m_config,
-        model_flops_per_token)
+        GPTForPretraining, GPTHybridTrainStep, GPTModel, _eager_step,
+        gpt_345m_config, model_flops_per_token)
     cfg = gpt_345m_config(max_position_embeddings=1024, num_heads=8)
     model = GPTForPretraining(GPTModel(cfg, seed=0, device="cuda"))
-    step = GPTHybridTrainStep(model, cfg, None, n_micro=1, lr=1e-4,
-                              remat="dots", compute_dtype="bfloat16")
+    make = lambda: GPTHybridTrainStep(  # noqa: E731
+        model, cfg, None, n_micro=1, lr=1e-4, remat="dots",
+        compute_dtype="bfloat16")
     rng = np.random.default_rng(0)
     ids = rng.integers(0, cfg.vocab_size, (TRAIN_B, TRAIN_S)).astype(
         np.int32)
@@ -2722,19 +2755,69 @@ def _train_main(torch, np, res):
          f"{cfg.hidden_size} heads={cfg.num_heads}x{cfg.head_dim} vocab="
          f"{cfg.vocab_size}, B={TRAIN_B} S={TRAIN_S}, bf16 compute, f32 "
          f"masters and moments, remat='dots', AdamW lr=1e-4")
-    losses = [step(ids, labels).item() for _ in range(WARMUP_STEPS)]
+
+    # the eager step: GRAPH_CHECK_STEPS steps, its masters kept, then freed
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    with _eager_step():
+        eager = make()
+        e_losses, e_walls, e_issues = _train_steps(torch, eager, ids, labels,
+                                                   GRAPH_CHECK_STEPS)
+    e_peak = torch.cuda.max_memory_allocated()
+    e_masters = _masters(torch, eager)
+    del eager
+    torch.cuda.empty_cache()
+    eager_row = dict(losses=e_losses, step_ms=[t * 1e3 for t in e_walls],
+                     step_p50_ms=_pct(e_walls[1:], 0.5) * 1e3,
+                     host_issue_p50_ms=_pct(e_issues[1:], 0.5) * 1e3,
+                     max_memory_allocated_bytes=e_peak)
+    _log(f"training eager, {GRAPH_CHECK_STEPS} steps: step p50 "
+         f"{eager_row['step_p50_ms']:.2f} ms (first "
+         f"{eager_row['step_ms'][0]:.2f}), host issue p50 "
+         f"{eager_row['host_issue_p50_ms']:.2f} ms, peak memory {e_peak} "
+         f"bytes")
+
+    # the captured step from the same weights: the first call runs the
+    # step and captures it, the rest replay; held against the eager run
+    torch.cuda.reset_peak_memory_stats()
+    step = make()
+    c_losses, c_walls, _ = _train_steps(torch, step, ids, labels,
+                                        GRAPH_CHECK_STEPS)
+    diff = max((v.float() - e_masters[k].float()).abs().max().item()
+               for k, v in _masters(torch, step).items())
+    del e_masters
+    same = c_losses == e_losses and diff == 0.0
+    graph = dict(first_call_ms=c_walls[0] * 1e3, capture_s=step.capture_s,
+                 graphs=len(step.captured_shapes),
+                 pool_bytes=step.graph_pool_bytes(),
+                 eager_first_step_ms=e_walls[0] * 1e3,
+                 losses=c_losses, max_abs_master_diff=diff,
+                 equal_to_eager=same)
+    _log(f"training captured: first call (one step + capture) "
+         f"{graph['first_call_ms']:.2f} ms, of which capture "
+         f"{step.capture_s * 1e3:.2f} ms (the eager step's first: "
+         f"{graph['eager_first_step_ms']:.2f} ms); graphs "
+         f"{graph['graphs']}, pool {graph['pool_bytes']} bytes")
+    _log(f"training captured vs eager over {GRAPH_CHECK_STEPS} steps: "
+         f"losses {c_losses} vs {e_losses}; masters max |diff| {diff:.3e}: "
+         f"{'bit-equal' if same else 'DIFFER'}")
+    res["training_graph"] = graph
+    res["training_eager"] = eager_row
+    if not same:
+        raise AssertionError("captured training step differs from eager")
+
     fa.launches = fa.dq_launches = fa.dkv_launches = 0
-    times, per_step = [], []
+    times, per_step, issues, losses = [], [], [], []
     for _ in range(TIMED_STEPS):
         c0 = _flash_counts()
-        t0 = time.perf_counter()
-        losses.append(step(ids, labels).item())
-        times.append(time.perf_counter() - t0)
+        got = _train_steps(torch, step, ids, labels, 1)
+        losses += got[0]
+        times += got[1]
+        issues += got[2]
         per_step.append([b - a for a, b in zip(c0, _flash_counts())])
     counts = _flash_counts()
     peak = torch.cuda.max_memory_allocated()
+    losses = e_losses + losses
     L = cfg.num_layers
     want = [2 * L, L, L]     # forward + recompute under "dots"; dQ; dK/dV
     tokens_per_s = TRAIN_B * TRAIN_S * TIMED_STEPS / sum(times)
@@ -2742,21 +2825,24 @@ def _train_main(torch, np, res):
     e2e = dict(tokens_per_s=tokens_per_s,
                step_p50_ms=_pct(times, 0.5) * 1e3,
                step_ms=[t * 1e3 for t in times],
+               host_issue_p50_ms=_pct(issues, 0.5) * 1e3,
+               host_issue_ms=[t * 1e3 for t in issues],
                mfu=tokens_per_s * fpt / PEAK_FLOPS["bfloat16"],
                flops_per_token=fpt,
                max_memory_allocated_bytes=peak, losses=losses,
                launches_per_step=per_step,
                launches=dict(zip(("flash_fwd", "flash_bwd_dq",
                                   "flash_bwd_dkv"), counts)))
-    _log(f"training bf16, {TIMED_STEPS} timed steps after {WARMUP_STEPS} "
-         f"warm-up: {tokens_per_s:.1f} tokens/s, step p50 "
+    _log(f"training bf16 captured, {TIMED_STEPS} timed steps after "
+         f"{GRAPH_CHECK_STEPS}: {tokens_per_s:.1f} tokens/s, step p50 "
          f"{e2e['step_p50_ms']:.2f} ms (steps "
-         f"{', '.join(f'{t:.2f}' for t in e2e['step_ms'])} ms), MFU "
+         f"{', '.join(f'{t:.2f}' for t in e2e['step_ms'])} ms), host "
+         f"stage + launch p50 {e2e['host_issue_p50_ms']:.3f} ms, MFU "
          f"{e2e['mfu']:.4f} of {PEAK_FLOPS['bfloat16']:.3g} FLOP/s "
-         f"({fpt:.4g} FLOP/token), peak memory {peak} bytes; on "
-         f"{res.get('nvidia_smi')}")
-    _log(f"training losses (warm-up, then timed): "
-         f"{', '.join(f'{x:.6f}' for x in losses)}")
+         f"({fpt:.4g} FLOP/token), peak memory {peak} bytes (eager "
+         f"{e_peak}); on {res.get('nvidia_smi')}")
+    _log(f"training losses (eager {GRAPH_CHECK_STEPS}, then the timed "
+         f"captured steps): {', '.join(f'{x:.6f}' for x in losses)}")
     _log(f"training flash launches per step (fwd, dq, dkv): {per_step}; "
          f"want {want} each")
     res["training_bf16"] = e2e
@@ -2765,27 +2851,45 @@ def _train_main(torch, np, res):
     if not all(math.isfinite(x) for x in losses) or losses[-1] >= losses[0]:
         raise AssertionError(f"losses not finite or not falling: {losses}")
 
-    # where a step's time goes: forward + backward against AdamW (CUDA
-    # events), then one step under the profiler by kernel group
+    # where a captured step's time goes: the host's staging and launch
+    # against the device's work between two events around the call
     ev = lambda: torch.cuda.Event(enable_timing=True)    # noqa: E731
+    e0, e1 = ev(), ev()
+    torch.cuda.synchronize()
+    e0.record()
+    t0 = time.perf_counter()
+    loss = step(ids, labels)
+    t1 = time.perf_counter()
+    e1.record()
+    e1.synchronize()
+    t2 = time.perf_counter()
+    del loss
+    split = dict(captured_device_ms=e0.elapsed_time(e1),
+                 captured_host_issue_ms=(t1 - t0) * 1e3,
+                 captured_wall_ms=(t2 - t0) * 1e3)
+    # and the eager step's: forward + backward against AdamW (CUDA events)
     e0, e1, e2 = ev(), ev(), ev()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     e0.record()
-    _, grads = step.loss_and_grads(ids, labels)
+    _, grads = step._loss_and_grads(*step._inputs(ids, labels))
     e1.record()
     t1 = time.perf_counter()
     step._t += 1
-    step._adamw(grads, 1e-4, step._t)
+    step._adamw(grads, *step._scalars(1e-4, step._t))
     e2.record()
     e2.synchronize()
     t2 = time.perf_counter()
-    split = dict(fwd_bwd_device_ms=e0.elapsed_time(e1),
+    split.update(fwd_bwd_device_ms=e0.elapsed_time(e1),
                  adamw_device_ms=e1.elapsed_time(e2),
                  fwd_bwd_host_issue_ms=(t1 - t0) * 1e3,
                  step_wall_ms=(t2 - t0) * 1e3)
     del grads
-    _log(f"training step split (CUDA events): forward + backward "
+    _log(f"training captured step (CUDA events around one call): device "
+         f"{split['captured_device_ms']:.2f} ms, host stage + launch "
+         f"{split['captured_host_issue_ms']:.3f} ms, wall "
+         f"{split['captured_wall_ms']:.2f} ms")
+    _log(f"training eager step split (CUDA events): forward + backward "
          f"{split['fwd_bwd_device_ms']:.2f} ms, AdamW "
          f"{split['adamw_device_ms']:.2f} ms; host issue of forward + "
          f"backward {split['fwd_bwd_host_issue_ms']:.2f} ms; wall "
@@ -2801,15 +2905,16 @@ def _train_main(torch, np, res):
             groups.items(), key=lambda kv: -kv[1])})
     res["training_profile"] = split
     if by_name:
-        _log(f"profile one training step: wall {wall * 1e3:.2f} ms, device "
-             f"busy {busy_us / 1e3:.2f} ms (share {split['busy_share']:.3f}); "
+        _log(f"profile one captured training step: wall {wall * 1e3:.2f} "
+             f"ms, device busy {busy_us / 1e3:.2f} ms (share "
+             f"{split['busy_share']:.3f}); "
              + ", ".join(f"{g} {ms:.3f} ms" for g, ms in
                          split["device_ms_by_group"].items()))
         for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:10]:
             _log(f"  {us / 1e3:9.3f} ms  {name[:100]}")
     else:
-        _log("profile one training step: device time not measured (the "
-             "profiler saw no CUDA activity)")
+        _log("profile one captured training step: device time not measured "
+             "(the profiler saw no CUDA activity)")
 
 
 def _grad_rel_err(got, ref):

@@ -11,7 +11,8 @@ is built (the CUDA kernels compile at their first launch, see
 Ported so far, GPT serving and training (``ROADMAP.md`` lists the rest):
 
 - :mod:`.models.gpt` — the GPT model family as ``nn.Module``s and the
-  training step;
+  training step (one CUDA graph per batch shape on the card);
+- :mod:`.optimizer.lr` — the learning-rate schedulers that feed it;
 - :mod:`.kernels.flash_attention` — FlashAttention-2 forward and
   backward (CUDA);
 - :mod:`.kernels.paged_attention` — paged-attention decode and ragged

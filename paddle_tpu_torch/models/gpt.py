@@ -15,7 +15,10 @@ The LM head is tied to the word embedding.
 """
 from __future__ import annotations
 
+import contextlib
 import math
+import time
+import warnings
 from dataclasses import dataclass
 
 import numpy as np
@@ -26,6 +29,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from ..device import resolve_device
+from ..framework.graphs import add_counts, counted, no_gc, pool_bytes
 from ..framework.random import make_generator
 from ..kernels._build import MAX_HEAD_DIM
 from ..kernels.flash_attention import flash_attention_bshd
@@ -423,10 +427,85 @@ def _as_dtype(name):
     return None if name is None else getattr(torch, str(name))
 
 
-def _f32(x) -> float:
-    """``x`` rounded to float32, as a Python float: the update's scalars
-    are f32 in the JAX step."""
-    return float(np.float32(x))
+# set only inside _eager_step()
+_EAGER_ON_CUDA = False
+
+
+@contextlib.contextmanager
+def _eager_step():
+    """Every ``GPTHybridTrainStep`` call inside runs eagerly on CUDA too:
+    the yardstick the captured step is held against by ``chip_smoke.py``
+    and the card tests. No call of the program enters it."""
+    global _EAGER_ON_CUDA
+    was, _EAGER_ON_CUDA = _EAGER_ON_CUDA, True
+    try:
+        yield
+    finally:
+        _EAGER_ON_CUDA = was
+
+
+@contextlib.contextmanager
+def _sync_is_error():
+    """A CUDA call that waits for the device raises inside: it would fail
+    a capture, and here it fails with the op's name."""
+    was = torch.cuda.get_sync_debug_mode()
+    with warnings.catch_warnings():     # "a prototype feature"
+        warnings.simplefilter("ignore", UserWarning)
+        torch.cuda.set_sync_debug_mode("error")
+    try:
+        yield
+    finally:
+        torch.cuda.set_sync_debug_mode(was)
+
+
+class _StagedInputs:
+    """One batch shape's static inputs in one device buffer: ids and
+    labels (int64 ``[B, S]``), then ``lr`` and ``t`` (f32). :meth:`stage`
+    writes a call's values into a pinned host buffer of the same layout
+    and moves it with one non-blocking copy (as the serving engines'
+    ``StepGraph.stage`` does); ids or labels given as CUDA tensors are
+    copied in on the device after it."""
+
+    def __init__(self, B, S, device):
+        n = B * S
+        self.static = torch.empty(16 * n + 8, dtype=torch.uint8,
+                                  device=device)
+        self.host = torch.empty(16 * n + 8, dtype=torch.uint8,
+                                pin_memory=True)
+        ints = self.static[:16 * n].view(torch.int64).view(2, B, S)
+        self.ids, self.labels = ints[0], ints[1]
+        self.lr, self.t = self.static[16 * n:].view(torch.float32).unbind()
+        host = self.host.numpy()
+        self._ints = host[:16 * n].view(np.int64).reshape(2, B, S)
+        self._scalars = host[16 * n:].view(np.float32)
+        self._copied = torch.cuda.Event()     # after the last copy out
+
+    def stage(self, input_ids, labels, lr, t):
+        """Write one step's inputs; the host buffer is rewritten only once
+        the previous copy out of it has landed."""
+        self._copied.synchronize()     # returns at once before a record
+        on_device = []
+        for i, (arr, view) in enumerate(((input_ids, self.ids),
+                                         (labels, self.labels))):
+            if isinstance(arr, torch.Tensor) and arr.is_cuda:
+                on_device.append((view, arr))
+            else:
+                self._ints[i] = np.asarray(arr)
+        self._scalars[:] = (lr, t)
+        self.static.copy_(self.host, non_blocking=True)
+        self._copied.record()
+        for view, arr in on_device:
+            view.copy_(arr, non_blocking=True)
+
+
+class _TrainGraph:
+    """One batch shape's captured step: the graph, its staged inputs, its
+    loss (overwritten by every replay) and the launches a replay stands
+    for."""
+
+    def __init__(self, graph, inputs, loss, counts):
+        self.graph, self.inputs = graph, inputs
+        self.loss, self.counts = loss, counts
 
 
 class GPTHybridTrainStep:
@@ -449,7 +528,20 @@ class GPTHybridTrainStep:
     embedding's dtype, as in JAX. ``remat``: False keeps every activation;
     True checkpoints each block; ``"dots"`` keeps only the outputs of the
     2-D weight products and recomputes the rest of each block.
-    ``use_flash=None`` asks :func:`flash_attention_gate`.
+    ``use_flash=None`` asks :func:`flash_attention_gate`. ``lr`` is a
+    float or a callable (an :class:`paddle_tpu_torch.optimizer.lr.
+    LRScheduler`), read and then stepped once a call; the update takes it
+    and the step count as 0-d f32 device tensors, as the JAX step takes
+    its traced ``lr`` and ``t``.
+
+    On CUDA the step is the counterpart of the JAX step's single jit: the
+    first call with a ``[B, S]`` shape runs the step eagerly on a side
+    stream and then captures forward, backward, clipping and AdamW as one
+    CUDA graph; later calls of that shape stage ids, labels, lr and t
+    into the graph's static inputs and replay it. A new shape captures
+    another graph (``jax.jit`` recompiles for a new shape); a step's graphs
+    share one memory pool. A capture that fails raises. On the CPU the
+    step runs eagerly, with the same device formulas.
 
     The mesh axes are not ported: an ``hcg`` with a degree above 1,
     ``pipeline_schedule="1f1b"``, ``virtual_pp_degree > 1`` and
@@ -495,6 +587,9 @@ class GPTHybridTrainStep:
         self.use_flash = use_flash
         self.flops_per_token = None
         self._t = 0
+        self._graphs = {}             # (B, S) -> _TrainGraph
+        self._pool = None
+        self.capture_s = 0.0          # wall time of the captures
 
         self._layer_refs = {k: [getattr(layer, k) for layer in gpt.layers]
                             for k in _BLOCK_KEYS}
@@ -531,7 +626,10 @@ class GPTHybridTrainStep:
                     blocks={k: cast(v) for k, v in params["blocks"].items()},
                     wte=cast(params["wte"]), wpe=cast(params["wpe"]))
 
-    def _check_seq(self, S):
+    def _check_shape(self, B, S):
+        if B % self.n_micro:
+            raise ValueError(f"batch {B} must divide into {self.n_micro} "
+                             f"micro-batches")
         if S > self.config.max_position_embeddings:
             raise ValueError(
                 f"sequence length {S} exceeds max_position_embeddings "
@@ -544,11 +642,15 @@ class GPTHybridTrainStep:
     def _block_fn(self, eps, use_flash):
         def run(p, x):
             return gpt_block(p, x, eps, use_flash=use_flash)
+        # the step draws no random numbers, so the RNG state need not be
+        # kept for the recompute (reading it is not allowed in a capture)
         if self.remat == "dots":
             return lambda p, x: checkpoint(run, p, x, use_reentrant=False,
-                                           context_fn=_dots_context)
+                                           context_fn=_dots_context,
+                                           preserve_rng_state=False)
         if self.remat:
-            return lambda p, x: checkpoint(run, p, x, use_reentrant=False)
+            return lambda p, x: checkpoint(run, p, x, use_reentrant=False,
+                                           preserve_rng_state=False)
         return run
 
     def _loss_fn(self, params, ids, labels):
@@ -556,11 +658,8 @@ class GPTHybridTrainStep:
         over the micro-batches."""
         cfg = self.config
         B, S = ids.shape
-        if B % self.n_micro:
-            raise ValueError(f"batch {B} must divide into {self.n_micro} "
-                             f"micro-batches")
+        self._check_shape(B, S)
         mb = B // self.n_micro
-        self._check_seq(S)
         cp = self._cast_params(params)
         eps = cfg.layer_norm_epsilon
         blk = self._block_fn(eps, self._use_flash(S))
@@ -597,26 +696,40 @@ class GPTHybridTrainStep:
     def loss_and_grads(self, input_ids, labels):
         """The loss (0-d f32) and the gradient of every master, as a tree
         shaped like ``params``; nothing is updated."""
-        ids, labs = self._inputs(input_ids, labels)
+        loss, grads = self._loss_and_grads(*self._inputs(input_ids, labels))
+        grads = iter(grads)
+        return loss, _tree_map(lambda _: next(grads), self.params)
+
+    def _loss_and_grads(self, ids, labels):
         leaves = [v for _, v in _tree_items(self.params)]
         with torch.enable_grad():
-            loss = self._loss_fn(self.params, ids, labs)
-            grads = iter(torch.autograd.grad(loss, leaves))
-        return loss.detach(), _tree_map(lambda _: next(grads), self.params)
+            loss = self._loss_fn(self.params, ids, labels)
+            grads = torch.autograd.grad(loss, leaves)
+        return loss.detach(), grads
+
+    def _scalars(self, lr, t):
+        """``lr`` and the step count ``t`` as 0-d f32 tensors on the
+        masters' device (the eager step's; a graph stages its own)."""
+        return torch.tensor([lr, t], dtype=torch.float32,
+                            device=self.params["wte"].device).unbind()
 
     @torch.no_grad()
     def _adamw(self, grads, lr, t):
+        """The AdamW update of every master and moment, in place, as the
+        JAX step writes it: global-norm clipping, bias corrections
+        ``1 - b ** t`` and the decay factor ``1 - lr * wd`` computed in f32
+        on the device from the 0-d f32 tensors ``lr`` and ``t``. ``grads``
+        are the gradients in the order of ``_tree_items(self.params)``."""
         _, b1, b2, eps, wd, clip = self.hyper
-        grads = [g for _, g in _tree_items(grads)]
         if clip is not None and clip > 0:
             gnorm = torch.stack([g.float().square().sum()
                                  for g in grads]).sum().sqrt()
             scale = (clip / gnorm.clamp_min(1e-6)).clamp_max(1.0)
         else:
             scale = 1.0
-        bc1 = _f32(np.float32(1) - np.float32(b1) ** np.float32(t))
-        bc2 = _f32(np.float32(1) - np.float32(b2) ** np.float32(t))
-        lr = _f32(lr)
+        bc1 = 1 - torch.pow(b1, t)
+        bc2 = 1 - torch.pow(b2, t)
+        keep = 1 - lr * wd
         decays = dict(_tree_items(self._decay_mask()))
         for (path, p), g, (_, m), (_, v) in zip(
                 _tree_items(self.params), grads,
@@ -627,18 +740,25 @@ class GPTHybridTrainStep:
             v2 = b2 * v.float() + (1 - b2) * g.square()
             mhat = m2 / bc1
             vhat = v2 / bc2
-            keep = _f32(1 - np.float32(lr) * np.float32(
-                wd if decays[path] else 0.0))
-            p.copy_(p.float() * keep - lr * mhat / (vhat.sqrt() + eps))
+            p32 = p.float() * keep if decays[path] else p.float()
+            p.copy_(p32 - lr * mhat / (vhat.sqrt() + eps))
             m.copy_(m2)
             v.copy_(v2)
 
+    def _step(self, ids, labels, lr, t):
+        """Forward, backward and the update on device tensors; returns the
+        loss before the update. What a graph captures."""
+        loss, grads = self._loss_and_grads(ids, labels)
+        self._adamw(grads, lr, t)
+        return loss
+
     def __call__(self, input_ids, labels):
         """One step on ``[B, S]`` ids and labels (numpy arrays or tensors);
-        returns the loss before the update as a 0-d f32 tensor."""
-        ids, labs = self._inputs(input_ids, labels)
-        self.flops_per_token = model_flops_per_token(self.config,
-                                                     ids.shape[1])[0]
+        returns the loss before the update as a 0-d f32 tensor that no
+        later call overwrites."""
+        B, S = input_ids.shape
+        self._check_shape(B, S)
+        self.flops_per_token = model_flops_per_token(self.config, S)[0]
         self._t += 1
         # a callable lr (an LR schedule) is read, then stepped, per call
         lr_src = self.hyper[0]
@@ -648,9 +768,59 @@ class GPTHybridTrainStep:
                 lr_src.step()
         else:
             lr = lr_src
-        loss, grads = self.loss_and_grads(ids, labs)
-        self._adamw(grads, lr, self._t)
+        if self.params["wte"].device.type == "cuda" and not _EAGER_ON_CUDA:
+            return self._captured(input_ids, labels, lr, (B, S))
+        ids, labs = self._inputs(input_ids, labels)
+        return self._step(ids, labs, *self._scalars(lr, self._t))
+
+    def _captured(self, input_ids, labels, lr, key):
+        graph = self._graphs.get(key)
+        if graph is None:
+            return self._capture(input_ids, labels, lr, key)
+        graph.inputs.stage(input_ids, labels, lr, self._t)
+        graph.graph.replay()
+        add_counts(graph.counts)
+        return graph.loss.clone()
+
+    def _capture(self, input_ids, labels, lr, key):
+        """This call's step, run eagerly on a side stream (it primes the
+        allocator, cuBLAS and the kernel library, and counts its launches
+        as any step does), then captured as the graph of ``key``: the
+        capture records the same work and runs none of it, so the state
+        moves by one step. Returns the step's loss."""
+        dev = self.params["wte"].device
+        inputs = _StagedInputs(*key, dev)
+        inputs.stage(input_ids, labels, lr, self._t)
+        args = (inputs.ids, inputs.labels, inputs.lr, inputs.t)
+        stream = torch.cuda.current_stream(dev)
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(stream)
+        with torch.cuda.stream(side), _sync_is_error():
+            loss = self._step(*args)
+        stream.wait_stream(side)
+        loss.record_stream(stream)
+        t0 = time.perf_counter()
+        if self._pool is None:
+            self._pool = torch.cuda.graph_pool_handle()
+        graph = torch.cuda.CUDAGraph()
+
+        def capture():
+            with no_gc(), torch.cuda.graph(graph, pool=self._pool):
+                return self._step(*args)
+        out, counts = counted(capture)
+        self._graphs[key] = _TrainGraph(graph, inputs, out, counts)
+        self.capture_s += time.perf_counter() - t0
         return loss
+
+    @property
+    def captured_shapes(self):
+        """The ``(B, S)`` shapes that have a captured graph."""
+        return sorted(self._graphs)
+
+    def graph_pool_bytes(self):
+        """Device bytes the step's graphs' pool holds (0 with none
+        captured; None where the allocator does not name pools)."""
+        return 0 if self._pool is None else pool_bytes(self._pool)
 
     train_batch = __call__
 

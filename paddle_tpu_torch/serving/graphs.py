@@ -21,81 +21,22 @@ read every graph's output to the host (``.tolist()``, ``int(tok[0])``)
 before another graph replays, so no two graphs' intermediates are live at
 once.
 
-Launch accounting: the kernel wrappers count their launches in Python, and
-a replay runs no Python. So each graph records, at capture, what the
-counters of ``paddle_tpu_torch.kernels`` moved by, restores them (warm-up
-and capture count nothing), and adds that to the same counters on every
-replay (:func:`counted`, :class:`StepGraph`).
+Launch accounting: each graph records, at capture, what the kernels'
+launch counters moved by and adds that on every replay (``counted`` and
+the other helpers it shares with the training step's graph are in
+:mod:`paddle_tpu_torch.framework.graphs`, re-exported here).
 """
 from __future__ import annotations
 
-import contextlib
-import gc
 import math
 
 import torch
 
-from ..kernels import flash_attention, int8_matmul, moe_dispatch, \
-    paged_attention
+from ..framework.graphs import (add_counts, counted, no_gc,  # noqa: F401
+                                pool_bytes, read_counts, unpack)
 
 __all__ = ["BucketGraphs", "StepGraph", "read_counts", "counted",
            "unpack"]
-
-_KERNEL_MODULES = (flash_attention, paged_attention, int8_matmul,
-                   moe_dispatch)
-
-
-def read_counts() -> dict:
-    """Every kernel wrapper's launch counter (``*launches`` of the modules
-    of ``paddle_tpu_torch.kernels``), by ``(module, name)``."""
-    return {(m.__name__, k): v for m in _KERNEL_MODULES
-            for k, v in vars(m).items()
-            if k.endswith("launches") and isinstance(v, int)}
-
-
-def _add_counts(delta):
-    mods = {m.__name__: m for m in _KERNEL_MODULES}
-    for (mod, name), n in delta.items():
-        setattr(mods[mod], name, getattr(mods[mod], name) + n)
-
-
-def counted(fn):
-    """Run ``fn()``; return its result and what it moved the launch
-    counters by (only the counters that moved), with the counters set back
-    to where they were."""
-    before = read_counts()
-    out = fn()
-    moved = {k: v - before[k] for k, v in read_counts().items()
-             if v != before[k]}
-    _add_counts({k: -v for k, v in moved.items()})
-    return out, moved
-
-
-@contextlib.contextmanager
-def _no_gc():
-    """The cyclic garbage collector off: a collection inside a capture may
-    destroy another graph (or free pinned memory or an event), which
-    invalidates the capture. ``torch.cuda.graph`` still collects (by an
-    explicit call) just before it begins."""
-    was = gc.isenabled()
-    gc.disable()
-    try:
-        yield
-    finally:
-        if was:
-            gc.enable()
-
-
-def unpack(flat, shapes):
-    """Views of a flat tensor, one for each shape, in order."""
-    views, at = [], 0
-    for shape in shapes:
-        n = math.prod(shape)
-        views.append(flat[at:at + n].view(shape))
-        at += n
-    if at != flat.numel():
-        raise ValueError(f"{flat.numel()} values for shapes {shapes}")
-    return tuple(views)
 
 
 class StepGraph:
@@ -127,7 +68,7 @@ class StepGraph:
         launches; returns the static output (overwritten by the next
         replay)."""
         self.graph.replay()
-        _add_counts(self.counts)
+        add_counts(self.counts)
         return self.out
 
 
@@ -172,7 +113,7 @@ class BucketGraphs:
             graph.register_generator_state(self.generator)
 
         def capture():
-            with torch.no_grad(), _no_gc(), \
+            with torch.no_grad(), no_gc(), \
                     torch.cuda.graph(graph, pool=self.pool):
                 return fn(*inputs)
         out, counts = counted(capture)
@@ -182,12 +123,6 @@ class BucketGraphs:
         return self._graphs[key]
 
     def pool_bytes(self):
-        """Device bytes the graphs' shared pool holds (segments of the
-        caching allocator in that pool), or None where the allocator's
-        snapshot does not name pools."""
-        segs = torch.cuda.memory_snapshot()
-        if segs and "segment_pool_id" not in segs[0]:
-            return None
-        pool = tuple(self.pool)
-        return sum(s["total_size"] for s in segs
-                   if tuple(s["segment_pool_id"]) == pool)
+        """Device bytes the graphs' shared pool holds, or None where the
+        allocator's snapshot does not name pools."""
+        return pool_bytes(self.pool)
