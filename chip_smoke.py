@@ -117,6 +117,29 @@ Twelve phases, one result per line:
    ``torch.profiler``. Then, in f32 at full width and 4 layers, the
    kernel path against the plain attention path, and ``remat="dots"``
    against no remat: first-step gradients and three steps of losses.
+9. ``training_moe`` — ERNIE-MoE pretraining, the step of
+   ``bench_ernie_moe`` (BASELINE config #5) through the dygraph entry
+   points: ``ErnieMoeForPretraining`` at ``ernie_moe_base_config()`` (12
+   layers, hidden 768, 12 heads of 64, 8 experts top-2 in every second
+   layer, vocab 30522; f32 parameters from a seed), B = 16, S = 512,
+   ``forward_with_mlm_loss`` under ``amp.auto_cast(bf16)``, backward,
+   ``AdamW(lr=1e-4)``. (a) 2 warm-up and 10 timed steps: tokens/s, step
+   p50, host issue against the device's span between events (and host
+   waits inside a step, by the sync debug mode), MFU, peak memory, every loss (finite, falling), the flash
+   launches of each step (12 forward, 12 dQ, 12 dK/dV; no MoE kernel: the
+   default config takes the gather path), the attention passes' kernels
+   by name, and one step under ``torch.profiler``; (b) the fused MoE
+   dispatch and combine in training (random routing off) against the
+   gather path from the same weights, f32, 3 steps each: losses,
+   first-step gradients and parameters after step 1, 6 dispatch and 6
+   combine launches a step on the three-pass route; (c) 2 layers at base
+   widths, B = 2: the loss and every gradient with the kernels against
+   the same model with every kernel on its plain version, f32 and bf16;
+   then the flash backward's errors over 6 seeds at [16, 512, 12, 64]
+   non-causal beside the training shape's, and rows 1-3 and 7-8 checked
+   and timed at this path's shapes (the dispatch and combine at S = 8192
+   in f32, as O1 hands them over) beside their plain versions, bounds and
+   library calls.
 
 Exits non-zero, without the final line, when CUDA is unavailable or any
 phase fails. The last line is ``{"ok": true, "device": {...}}``; the line
@@ -247,6 +270,36 @@ GRAPH_CHECK_STEPS = 5
 # deterministic kernels, so they should agree to rounding or better.
 GRAD_REL_TOL = {"kernel_vs_plain": 1e-4, "dots_vs_none": 1e-6}
 TRAIN_LOSS_TOL = 1e-4
+# ERNIE-MoE pretraining: bench_ernie_moe (bench.py:567) at
+# ernie_moe_base_config(), B = 16, S = 512, AdamW lr 1e-4 under
+# auto_cast(bf16); 2 warm-up steps, then 10 timed ones on one batch
+MOE_TRAIN_B, MOE_TRAIN_S, MOE_TRAIN_WARMUP, MOE_TRAIN_STEPS = 16, 512, 2, 10
+# fused against gather MoE training, f32 (under auto_cast the gather path's
+# gate product runs in bf16 and the fused kernel's in f32, so the two
+# route tokens apart): 3 steps each from the same weights, every gate's
+# random routing off. The losses to TRAIN_LOSS_TOL; each first-step
+# gradient's |a - b| / |b| (norms; for the key projections' biases, whose
+# gradient is 0 up to rounding, over the norm of all the gradients) to
+# GRAD_REL_TOL["kernel_vs_plain"];
+# every parameter after step 1 within MOE_PARAM_TOL (AdamW's first step
+# moves an element by lr g / (|g| + eps), at most lr = 1e-4, whatever |g|:
+# an element whose gradient is near 0 may step either way, so one lr)
+MOE_FUSED_STEPS = 3
+MOE_PARAM_TOL = 1e-4
+# kernel against plain at 2 layers (one dense, one MoE; base widths;
+# B = 2, S = 512), the loss and every gradient (|a - b| / |b| as in the
+# fused check): f32 the trainer's limits
+# (GRAD_REL_TOL["kernel_vs_plain"], TRAIN_LOSS_TOL); bf16 under
+# auto_cast, where the kernels round where the plain versions do, but a
+# sum in another order flips some roundings of the attention's bf16
+# outputs, which the bf16 products after it carry on: each gradient's
+# |a - b| / |b| to 1.5e-2 and the loss to 1e-4, about twice the errors
+# seen on an H100 (6.6e-3, 4.4e-5; the plain model in bf16 against f32:
+# 1.27e-2)
+MOE_KVP_TOL = {"float32": (1e-4, 1e-4), "bfloat16": (1.5e-2, 1e-4)}
+MOE_KVP_B = 2
+# rows 1-3 at the ERNIE-MoE training shape: [B, S, N, d], non-causal
+MOE_ATTN_SHAPE = (16, 512, 12, 64)
 
 
 _T0 = time.perf_counter()
@@ -2979,6 +3032,596 @@ def phase_training(torch, np, res):
     _train_f32_check(torch, np, res)
 
 
+# ----------------------------------------------------------------- phase 5
+
+def _moe_model(torch, seed, **kw):
+    """``ErnieMoeForPretraining`` at ``ernie_moe_base_config(**kw)`` on the
+    card, f32 parameters from ``seed``, in training mode."""
+    from paddle_tpu_torch.models.ernie import (
+        ErnieMoeForPretraining, ErnieMoeModel, ernie_moe_base_config)
+    cfg = ernie_moe_base_config(**kw)
+    return ErnieMoeForPretraining(ErnieMoeModel(cfg, seed=seed,
+                                                device="cuda")).train()
+
+
+def _no_random_routing(model):
+    from paddle_tpu_torch.incubate.distributed.models.moe import GShardGate
+    for m in model.modules():
+        if isinstance(m, GShardGate):
+            m.random_routing = False
+
+
+def _moe_paths(model):
+    """The path each MoE layer takes in training, and why."""
+    out = {}
+    for i, blk in enumerate(model.ernie.layers):
+        moe = getattr(blk, "moe", None)
+        if moe is None:
+            continue
+        kind = moe._fused_gate_kind() if moe.fused_dispatch else None
+        out[f"layer {i}"] = (
+            f"fused ({kind})" if kind else
+            "gather (fused_dispatch=False)" if not moe.fused_dispatch else
+            "gather (the gate draws random numbers in training)")
+    return out
+
+
+def _moe_batch(torch, np, cfg, b, seed):
+    """ids and labels in [0, V), as bench_ernie_moe draws them."""
+    rng = np.random.default_rng(seed)
+    return tuple(torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (b, MOE_TRAIN_S)).astype(np.int64)).cuda()
+        for _ in range(2))
+
+
+def _moe_step(torch, model, opt, ids, labels, bf16):
+    """One dygraph step as a user writes it: the loss under ``auto_cast``
+    (bf16 when ``bf16``), backward, AdamW, clear the gradients."""
+    from paddle_tpu_torch.amp import auto_cast
+    with auto_cast(enable=bf16, dtype="bfloat16"):
+        loss = model.forward_with_mlm_loss(ids, labels)
+    loss.backward()
+    opt.step()
+    opt.clear_grad()
+    return loss.detach()
+
+
+def _moe_flops_per_token(cfg, S):
+    """Model FLOPs of one trained token: 3 times the forward's (the
+    backward twice the forward). The forward: 2 FLOPs for every weight a
+    token meets (q, k, v and out projections, the dense FFNs, the top_k
+    experts and the gate of each MoE layer, the head's transform and tied
+    decoder; not the embedding lookups, capacity padding or dropped
+    choices) and 4 S H a layer for attention (S^T and P V over S keys)."""
+    H, F, L = cfg.hidden_size, cfg.intermediate_size, cfg.num_hidden_layers
+    n_moe = sum(1 for i in range(L)
+                if cfg.moe_every and (i + 1) % cfg.moe_every == 0)
+    weights = (4 * H * H * L + 2 * H * F * (L - n_moe)
+               + n_moe * (cfg.top_k * 2 * H * F + H * cfg.num_experts)
+               + H * H + H * cfg.vocab_size)
+    return 3 * (2 * weights + 4 * S * H * L)
+
+
+def _syncs_in(torch, fn):
+    """Host waits on the device inside one call of ``fn``, by
+    ``torch.cuda.set_sync_debug_mode("warn")``."""
+    import warnings
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return [str(w.message)[:120] for w in seen
+            if "called a synchronizing" in str(w.message)]
+
+
+def _moe_train_main(torch, np, res):
+    """(a) bench_ernie_moe's step in the port at full width: 2 warm-up and
+    10 timed dygraph steps, bf16 O1, AdamW."""
+    from paddle_tpu_torch.amp import auto_cast
+    from paddle_tpu_torch.kernels import flash_attention as fa
+    from paddle_tpu_torch.optimizer import AdamW
+    model = _moe_model(torch, 0)
+    cfg = model.config
+    B, S, L = MOE_TRAIN_B, MOE_TRAIN_S, cfg.num_hidden_layers
+    opt = AdamW(learning_rate=1e-4, parameters=model.parameters())
+    ids, labels = _moe_batch(torch, np, cfg, B, 0)
+    n_params = sum(p.numel() for p in model.parameters())
+    paths = _moe_paths(model)
+    _log(f"training_moe (a): ErnieMoeForPretraining at ernie_moe_base_config"
+         f"(): layers={L} hidden={cfg.hidden_size} heads="
+         f"{cfg.num_attention_heads}x{cfg.head_dim} ffn="
+         f"{cfg.intermediate_size} experts={cfg.num_experts} top-"
+         f"{cfg.top_k} every {cfg.moe_every} vocab={cfg.vocab_size}, "
+         f"{n_params} parameters (f32), B={B} S={S}, auto_cast bf16 (O1), "
+         f"AdamW lr=1e-4; MoE paths {paths}")
+    step = lambda: _moe_step(torch, model, opt, ids, labels, True)  # noqa: E731
+    for _ in range(MOE_TRAIN_WARMUP):
+        step()
+    syncs = _syncs_in(torch, step)
+    _log(f"training_moe (a): host waits on the device inside a step: "
+         f"{len(syncs)} {syncs[:3]}")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ev = lambda: torch.cuda.Event(enable_timing=True)    # noqa: E731
+    losses, walls, issues, spans, per_step = [], [], [], [], []
+    _zero_counts()
+    for _ in range(MOE_TRAIN_STEPS):
+        c0 = _counts()
+        e0, e1 = ev(), ev()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        e0.record()
+        loss = step()
+        t1 = time.perf_counter()
+        e1.record()
+        e1.synchronize()
+        walls.append(time.perf_counter() - t0)
+        issues.append(t1 - t0)
+        spans.append(e0.elapsed_time(e1))
+        losses.append(loss.item())
+        per_step.append({k: v - c0[k] for k, v in _counts().items()})
+    counts = _counts()
+    peak = torch.cuda.max_memory_allocated()
+    want = dict(flash=L, flash_bwd_dq=L, flash_bwd_dkv=L)
+    for i, got in enumerate(per_step):
+        _check_counts(f"training_moe (a) step {i}", got, want)
+    if not all(math.isfinite(x) for x in losses) or losses[-1] >= losses[0]:
+        raise AssertionError(f"training_moe losses not finite or not "
+                             f"falling: {losses}")
+    fpt = _moe_flops_per_token(cfg, S)
+    tokens_per_s = B * S * MOE_TRAIN_STEPS / sum(walls)
+    issue_p50 = _pct(issues, 0.5) * 1e3
+    wall, by_name = _device_time(torch, step)
+    groups = _group_times(by_name)
+    busy_us = sum(by_name.values())
+    e2e = dict(tokens_per_s=tokens_per_s, step_p50_ms=_pct(walls, 0.5) * 1e3,
+               step_ms=[t * 1e3 for t in walls], host_issue_p50_ms=issue_p50,
+               host_issue_ms=[t * 1e3 for t in issues],
+               device_span_p50_ms=_pct(spans, 0.5),
+               host_syncs_in_step=len(syncs),
+               mfu=tokens_per_s * fpt / PEAK_FLOPS["bfloat16"],
+               flops_per_token=fpt, n_params=n_params,
+               max_memory_allocated_bytes=peak, losses=losses,
+               launches=counts, launches_per_step=per_step[0],
+               moe_paths=paths, profiled_wall_ms=wall * 1e3,
+               profiled_device_ms=busy_us / 1e3 if by_name else None,
+               busy_share=busy_us / 1e6 / wall if by_name else None,
+               device_ms_by_group={g: us / 1e3 for g, us in sorted(
+                   groups.items(), key=lambda kv: -kv[1])})
+    _log(f"training_moe (a) bf16 O1, {MOE_TRAIN_STEPS} timed steps after "
+         f"{MOE_TRAIN_WARMUP}: {tokens_per_s:.1f} tokens/s, step p50 "
+         f"{e2e['step_p50_ms']:.2f} ms (steps "
+         f"{', '.join(f'{t * 1e3:.2f}' for t in walls)} ms), host issue "
+         f"p50 {issue_p50:.2f} ms, device span between events p50 "
+         f"{e2e['device_span_p50_ms']:.2f} ms; MFU {e2e['mfu']:.4f} of {PEAK_FLOPS['bfloat16']:.3g} FLOP/s "
+         f"({fpt:.4g} FLOP/token: 3 x (2 x the weights a token meets, top-"
+         f"{cfg.top_k} experts, + 4 S H per layer)); peak memory {peak} "
+         f"bytes; on {res.get('nvidia_smi')}")
+    _log(f"training_moe (a) losses: {', '.join(f'{x:.6f}' for x in losses)}")
+    _log(f"training_moe (a) launches per step {per_step[0]}, want {want}; "
+         f"in all {counts}")
+    if by_name:
+        _log(f"profile one training_moe step: wall {wall * 1e3:.2f} ms, "
+             f"device busy {busy_us / 1e3:.2f} ms (share "
+             f"{e2e['busy_share']:.3f}); " + ", ".join(
+                 f"{g} {ms:.3f} ms"
+                 for g, ms in e2e["device_ms_by_group"].items()))
+        for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:12]:
+            _log(f"  {us / 1e3:9.3f} ms  {name[:100]}")
+    else:
+        _log("profile one training_moe step: device time not measured (the "
+             "profiler saw no CUDA activity)")
+    # the route of each attention pass on the model's own q/k/v, by the
+    # kernel nodes of a graph of one call
+    attn = model.ernie.layers[0].inner.self_attn
+    split = lambda t: t.reshape(B, S, cfg.num_attention_heads,  # noqa: E731
+                                cfg.head_dim)
+    with torch.no_grad(), auto_cast(dtype="bfloat16"):
+        x = model.ernie.embeddings(ids)
+        q, k, v = (split(p(x)) for p in (attn.q_proj, attn.k_proj,
+                                         attn.v_proj))
+    route = fa.kernel_route(q, k, v)
+    o, lse = fa.flash_attention_fwd(q, k, v)
+    do = torch.randn_like(o)
+    names = dict(
+        fwd=_kernel_names(torch, lambda: fa.flash_attention_fwd(q, k, v)),
+        bwd=_kernel_names(torch, lambda: fa.flash_attention_bwd(
+            q, k, v, o, lse, do)))
+    ran = {p: [n for n in ns if "flash_" in n] for p, ns in names.items()}
+    _log(f"training_moe attention on layer 0's q/k/v {tuple(q.shape)} "
+         f"{q.dtype} ({route} route): forward {ran['fwd']}; backward "
+         f"{ran['bwd']}")
+    want_names = (FLASH_FWD_KERNELS["wgmma"], "flash_bwd_dq_tc_kernel",
+                  FLASH_DKV_KERNELS["wgmma"])
+    if route != "wgmma" or len(ran["fwd"]) != 1 or len(ran["bwd"]) != 2 \
+            or want_names[0] not in ran["fwd"][0] \
+            or not all(any(w in n for n in ran["bwd"])
+                       for w in want_names[1:]):
+        raise AssertionError(f"training_moe attention did not run "
+                             f"{want_names}: {ran}")
+    e2e["attention_kernels"] = dict(route=route, **ran)
+    res["training_moe_bf16"] = e2e
+
+
+def _leaf_rel_err(got, ref):
+    """The leaves of two ``{name: gradient}`` dicts by |a - b| / |b|
+    (norms), worst first, as ``[(error, name), ...]``. A key projection's
+    bias has a gradient of 0 in exact arithmetic (the softmax ignores a
+    constant added to a row), so both sides hold rounding noise there: its
+    |a - b| is taken over the norm of all the leaves instead."""
+    total = math.sqrt(sum(r.float().square().sum().item()
+                          for r in ref.values()))
+    errs = []
+    for key, r in ref.items():
+        r = r.float()
+        den = total if key.endswith("k_proj.bias") else r.norm().item()
+        rel = (got[key].float() - r).norm().item() / max(den, 1e-30)
+        errs.append((rel if math.isfinite(rel) else math.inf, key))
+    return sorted(errs, reverse=True)
+
+
+def _moe_fused_check(torch, np, res):
+    """(b) The fused MoE dispatch and combine in training against the
+    gather path: f32, 3 steps each from the same weights."""
+    from paddle_tpu_torch.optimizer import AdamW
+    runs = {}
+    for name, fused in (("gather", False), ("fused", True)):
+        model = _moe_model(torch, 1, fused_dispatch=fused)
+        _no_random_routing(model)
+        cfg, L = model.config, model.config.num_hidden_layers
+        ids, labels = _moe_batch(torch, np, cfg, MOE_TRAIN_B, 1)
+        opt = AdamW(learning_rate=1e-4, parameters=model.parameters())
+        paths = _moe_paths(model)
+        losses, per_step = [], []
+        _zero_counts()
+        for i in range(MOE_FUSED_STEPS):
+            c0 = _counts()
+            loss = model.forward_with_mlm_loss(ids, labels)
+            loss.backward()
+            if i == 0:
+                grads = {n: p.grad.detach().clone()
+                         for n, p in model.named_parameters()
+                         if p.grad is not None}
+            opt.step()
+            opt.clear_grad()
+            if i == 0:
+                params = {n: p.detach().clone()
+                          for n, p in model.named_parameters()}
+            losses.append(loss.item())
+            per_step.append({k: v - c0[k] for k, v in _counts().items()})
+        runs[name] = dict(losses=losses, grads=grads, params=params,
+                          launches=_counts(), per_step=per_step, paths=paths)
+        n_moe = sum(1 for p in paths.values() if p.startswith("fused"))
+        want = dict(flash=L, flash_bwd_dq=L, flash_bwd_dkv=L)
+        if fused:
+            if n_moe != L // cfg.moe_every:
+                raise AssertionError(f"not every MoE layer fused: {paths}")
+            want.update(moe_dispatch=n_moe, moe_combine=n_moe)
+        for i, got in enumerate(per_step):
+            _check_counts(f"training_moe (b) {name} step {i}", got, want)
+        _log(f"training_moe (b) {name}, f32, random routing off: MoE paths "
+             f"{paths}; losses {losses}; launches per step {per_step[0]}")
+        del model, opt
+        torch.cuda.empty_cache()
+    f, g = runs["fused"], runs["gather"]
+    dloss = max(abs(a - b) for a, b in zip(f["losses"], g["losses"]))
+    errs = _leaf_rel_err(f["grads"], g["grads"])
+    worst, where = errs[0]
+    pdiff = max((f["params"][k] - v).abs().max().item()
+                for k, v in g["params"].items())
+    tol = GRAD_REL_TOL["kernel_vs_plain"]
+    ok = dloss <= TRAIN_LOSS_TOL and worst <= tol and pdiff <= MOE_PARAM_TOL
+    out = dict(losses_fused=f["losses"], losses_gather=g["losses"],
+               loss_abs_err=dloss, grad_rel_err=worst, worst_leaf=where,
+               worst_leaves=errs[:4],
+               param_max_abs_diff_step1=pdiff, launches=f["launches"],
+               launches_per_step=f["per_step"][0], moe_paths=f["paths"],
+               gather_paths=g["paths"])
+    _log(f"training_moe (b) fused vs gather, f32, {MOE_FUSED_STEPS} steps: "
+         f"losses max diff {dloss:.3e} (tol {TRAIN_LOSS_TOL:g}); first-step "
+         f"gradients max |a-b|/|b| {worst:.3e} ({where}; tol {tol:g}; "
+         f"then " + ", ".join(f"{k} {e:.2e}" for e, k in errs[1:4])
+         + f"); parameters after step 1 max |diff| {pdiff:.3e} (tol "
+         f"{MOE_PARAM_TOL:g}) {'ok' if ok else 'FAIL'}")
+    res["training_moe_fused"] = out
+    if not ok:
+        raise AssertionError("fused MoE training disagrees with the gather "
+                             "path")
+
+
+@contextlib.contextmanager
+def _plain_kernels():
+    """Inside, the flash forward and backward and the MoE dispatch and
+    combine wrappers run their plain versions on the CUDA tensors they are
+    given (the model and its autograd Functions unchanged): the same model
+    with every kernel on its plain version."""
+    from paddle_tpu_torch.kernels import flash_attention as fa
+    from paddle_tpu_torch.kernels import moe_dispatch as md
+    saved = (fa.flash_attention_fwd, fa.flash_attention_bwd, md._dispatch,
+             md._combine)
+    fa.flash_attention_fwd = fa.flash_attention_reference
+    fa.flash_attention_bwd = fa.flash_attention_bwd_reference
+    md._dispatch = lambda x, gw, gb, E, C, K, kind: \
+        md.reference_moe_dispatch(x, gw, gb, num_expert=E, capacity=C,
+                                  top_k=K, gate_kind=kind)
+    md._combine = md.combine_kernel_reference
+    try:
+        yield
+    finally:
+        (fa.flash_attention_fwd, fa.flash_attention_bwd, md._dispatch,
+         md._combine) = saved
+
+
+def _moe_kernel_vs_plain(torch, np, res):
+    """(c) 2 layers (one dense, one MoE with the fused kernels), base
+    widths, B = 2, S = 512: the loss and every gradient with the kernels
+    against the same model with every kernel on its plain version, f32 and
+    bf16 under auto_cast."""
+    from paddle_tpu_torch.amp import auto_cast
+    base = _moe_model(torch, 2, num_hidden_layers=2, fused_dispatch=True)
+    _no_random_routing(base)
+    ids, labels = _moe_batch(torch, np, base.config, MOE_KVP_B, 2)
+    runs, out = {}, {}
+    for dt in ("float32", "bfloat16"):
+        for which in ("kernel", "plain"):
+            model = copy.deepcopy(base)
+            ctx = _plain_kernels if which == "plain" else contextlib.nullcontext
+            _zero_counts()
+            with ctx():
+                with auto_cast(enable=dt == "bfloat16", dtype="bfloat16"):
+                    loss = model.forward_with_mlm_loss(ids, labels)
+                loss.backward()
+            counts = _counts()
+            want = {} if which == "plain" else dict(
+                flash=2, flash_bwd_dq=2, flash_bwd_dkv=2, moe_dispatch=1,
+                moe_combine=1)
+            _check_counts(f"training_moe (c) {dt} {which}", counts, want)
+            runs[dt, which] = (loss.item(), {
+                n: p.grad for n, p in model.named_parameters()
+                if p.grad is not None})
+            del model
+        grad_tol, loss_tol = MOE_KVP_TOL[dt]
+        (lk, gk), (lp, gp) = runs[dt, "kernel"], runs[dt, "plain"]
+        errs = _leaf_rel_err(gk, gp)
+        worst, where = errs[0]
+        ok = abs(lk - lp) <= loss_tol and worst <= grad_tol
+        out[dt] = dict(loss_kernel=lk, loss_plain=lp,
+                       loss_abs_err=abs(lk - lp), grad_rel_err=worst,
+                       worst_leaf=where, worst_leaves=errs[:4], ok=ok)
+        _log(f"training_moe (c) 2 layers B={MOE_KVP_B} S={MOE_TRAIN_S} "
+             f"{dt}, kernels vs plain versions: loss {lk:.6f} vs {lp:.6f} "
+             f"(|diff| {abs(lk - lp):.3e}, tol {loss_tol:g}); gradients "
+             f"max |a-b|/|b| {worst:.3e} ({where}; tol {grad_tol:g}; then "
+             + ", ".join(f"{k} {e:.2e}" for e, k in errs[1:4])
+             + f") {'ok' if ok else 'FAIL'}")
+    # the scale bf16 itself sets: the plain model in bf16 against f32
+    (_, g16), (_, g32) = runs["bfloat16", "plain"], runs["float32", "plain"]
+    out["bf16_vs_f32_plain_grad_rel"] = _leaf_rel_err(g16, g32)[0][0]
+    _log(f"training_moe (c) for scale, the plain model bf16 vs f32: "
+         f"gradients max |a-b|/|b| {out['bf16_vs_f32_plain_grad_rel']:.3e}")
+    res["training_moe_kernel_vs_plain"] = out
+    if not all(out[dt]["ok"] for dt in ("float32", "bfloat16")):
+        raise AssertionError("training_moe kernels disagree with their plain "
+                             "versions")
+
+
+def _flash_bwd_seed_stats(torch, fa, shape, causal, fused, seeds=6):
+    """dq, dk and dv of the bf16 kernels against the plain backward over
+    seeds 0..5 (the inputs of tools/torch_flash_bwd_stats.py where
+    ``fused``: the q/k/v views of one [B, S, 3, N, D] tensor): per seed,
+    each gradient's largest error and rms error against the limits."""
+    b, s, n, d = shape
+    elem_tol, rms_tol = GRAD_TOL["flash_bwd", "bfloat16"]
+    rows = []
+    for seed in range(seeds):
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        randn = lambda *sh: torch.randn(*sh, device="cuda",  # noqa: E731
+                                        generator=gen).to(torch.bfloat16)
+        if fused:
+            q, k, v = randn(b, s, 3, n, d).unbind(2)
+        else:
+            q, k, v = (randn(b, s, n, d) for _ in range(3))
+        do = randn(b, s, n, d)
+        o, lse = fa.flash_attention_fwd(q, k, v, causal)
+        got = fa.flash_attention_bwd(q, k, v, o, lse, do, causal)
+        refs = fa.flash_attention_bwd_reference(q, k, v, o, lse, do, causal)
+        row = {}
+        for name, g, r in zip(("dq", "dk", "dv"), got, refs):
+            err, elem, rms, _ = _grad_err(g, r)
+            abs_tol = TOL["flash_bwd", "bfloat16"] * max(
+                1.0, r.float().abs().max().item())
+            row[name] = dict(max_abs_err=err, elementwise=elem, rms=rms,
+                             elem_over=elem > elem_tol,
+                             within_abs_and_rms=err <= abs_tol
+                             and rms <= rms_tol)
+        rows.append(row)
+        del got, refs, o, lse
+    over = {g: sum(r[g]["elem_over"] for r in rows) for g in ("dq", "dk",
+                                                               "dv")}
+    return rows, over
+
+
+def _moe_attention_timings(torch, fa, res):
+    """Rows 1-3 at the ERNIE-MoE training shape [16, 512, 12, 64],
+    non-causal bf16, on separate q/k/v as the model's projections give
+    them: the errors over 6 seeds beside the training shape's, then each
+    kernel's time with the stream held, its plain version's, its bound and
+    SDPA's forward and flash backward."""
+    b, s, n, d = MOE_ATTN_SHAPE
+    rows, over = _flash_bwd_seed_stats(torch, fa, MOE_ATTN_SHAPE, False,
+                                       False)
+    rows128, over128 = _flash_bwd_seed_stats(
+        torch, fa, (TRAIN_B, TRAIN_S, 8, 128), True, True)
+    fmt = lambda rs: "; ".join(" ".join(                 # noqa: E731
+        f"{g} {r[g]['elementwise']:.2e}/{r[g]['rms']:.2e}"
+        + ("*" if r[g]["elem_over"] else "") for g in ("dq", "dk", "dv"))
+        for r in rs)
+    _log(f"flash backward bf16 over seeds 0-5, elementwise/rms (* over the "
+         f"{GRAD_TOL['flash_bwd', 'bfloat16'][0]:g} elementwise limit): "
+         f"[{b}, {s}, {n}, {d}] non-causal: {fmt(rows)}; over {over}")
+    _log(f"  the training shape [{TRAIN_B}, {TRAIN_S}, 8, 128] causal, fused "
+         f"views (tools/torch_flash_bwd_stats.py's inputs): {fmt(rows128)}; "
+         f"over {over128}")
+    res["training_moe_flash_bwd_seeds"] = dict(
+        shape=list(MOE_ATTN_SHAPE), rows=rows, over=over,
+        training_shape_rows=rows128, training_shape_over=over128)
+    bad = [i for i, r in enumerate(rows)
+           if not all(r[g]["within_abs_and_rms"] for g in r)]
+    if bad or over["dv"] or over["dq"] > over128["dq"] \
+            or over["dk"] > over128["dk"]:
+        raise AssertionError(
+            f"flash backward at {MOE_ATTN_SHAPE}: seeds over the max-abs or "
+            f"rms limit {bad}; elementwise over {over} against {over128} at "
+            f"the training shape (dv must be 0, dq and dk no more)")
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    q, k, v, do = (torch.randn(b, s, n, d, device="cuda", generator=gen).to(
+        torch.bfloat16) for _ in range(4))
+    scale = 1.0 / math.sqrt(d)
+    o, lse = fa.flash_attention_fwd(q, k, v)
+    o_ref, _ = fa.flash_attention_reference(q, k, v)
+    fwd_err, _, fwd_ok = _check("flash", o, o_ref, "bfloat16")
+    if not fwd_ok:
+        raise AssertionError(f"flash forward disagrees at {MOE_ATTN_SHAPE}")
+    _, delta = fa._launch_dq(q, k, v, o, lse, do, False, scale, 0)
+    with torch.no_grad():
+        fwd_ms = _time_held_ms(torch, lambda: fa._launch(
+            q, k, v, False, scale, 0), 20)
+        dq_ms = _time_held_ms(torch, lambda: fa._launch_dq(
+            q, k, v, o, lse, do, False, scale, 0), 20)
+        dkv_ms = _time_held_ms(torch, lambda: fa._launch_dkv(
+            q, k, v, do, lse, delta, False, scale, 0), 20)
+        fwd_plain = _time_held_ms(torch, lambda: fa.flash_attention_reference(
+            q, k, v), 5, warmup=1)
+        bwd_plain = _time_held_ms(
+            torch, lambda: fa.flash_attention_bwd_reference(
+                q, k, v, o, lse, do), 5, warmup=1)
+        qt, kt, vt, dot = (t.transpose(1, 2).contiguous()
+                           for t in (q, k, v, do))
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+        sdpa_fwd = _time_held_ms(torch, lambda: sdpa(qt, kt, vt), 20)
+        aten = torch.ops.aten
+        saved = aten._scaled_dot_product_flash_attention(qt, kt, vt, 0.0,
+                                                         False)
+        o_s, lse_s, cum_q, cum_k, max_q, max_k, ph_seed, ph_off = saved[:8]
+        sdpa_bwd = _time_held_ms(
+            torch, lambda: aten._scaled_dot_product_flash_attention_backward(
+                dot, qt, kt, vt, o_s, lse_s, cum_q, cum_k, max_q, max_k, 0.0,
+                False, ph_seed, ph_off), 20)
+    pairs = s * s * b * n                 # non-causal (query, key) pairs
+    tensor = q.numel() * q.element_size()
+    rrows = b * n * s * 4
+    shape = f"[{b}, {s}, {n}, {d}] non-causal bf16"
+    specs = (
+        ("flash", fwd_ms, fwd_plain, sdpa_fwd, 2 * 2 * d * pairs,
+         4 * tensor + rrows, fwd_err,
+         "SDPA forward on [B, N, S, d] copies, held"),
+        ("flash_bwd_dq", dq_ms, bwd_plain, sdpa_bwd,
+         3 * 2 * d * pairs + 2 * d * b * n * s, 6 * tensor + 2 * rrows,
+         rows[0]["dq"]["max_abs_err"],
+         "aten._scaled_dot_product_flash_attention_backward (dq, dk, dv), "
+         "held"),
+        ("flash_bwd_dkv", dkv_ms, bwd_plain, sdpa_bwd, 4 * 2 * d * pairs,
+         6 * tensor + 2 * rrows, max(rows[0]["dk"]["max_abs_err"],
+                                     rows[0]["dv"]["max_abs_err"]),
+         "the same SDPA backward op, held"))
+    for key, ms, plain, lib, flops, nbytes, err, lib_what in specs:
+        bound, by = _bound(flops, nbytes, "bfloat16")
+        res[key]["at_training_moe"] = dict(
+            shape=shape, ms=ms, plain_ms=plain, bound_ms=bound, bound_by=by,
+            library_ms=lib, library=lib_what, max_abs_err=err,
+            tflops=flops / ms / 1e9)
+        _log(f"{key} at {shape}: kernel {ms:.4f} ms ({flops / ms / 1e9:.1f} "
+             f"TFLOP/s), plain {plain:.4f} ms, bound {bound:.5f} ms ({by}: "
+             f"{flops / 1e9:.3f} GFLOP, {nbytes / 1e6:.3f} MB), library "
+             f"{lib:.4f} ms ({lib_what}); max_abs_err {err:.3e}")
+
+
+def _moe_dispatch_timings(torch, md, res):
+    """Rows 7-8 at the ERNIE-MoE training shape: S = 8192 tokens of 768 in
+    f32 (a layer norm's output under O1), E = 8, top-2 GShard, C =
+    int(1.2 * 2 * 8192 / 8) = 2457: checked against the plain versions as
+    the moe_dispatch phase checks them, the route by kernel name, and
+    timed with the stream held beside the plain versions and, for the
+    combine, F.embedding_bag."""
+    S, K = MOE_TRAIN_B * MOE_TRAIN_S, 2
+    C = int(1.2 * K * S / MOE_E)
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    x, gw, gb = _moe_inputs(torch, gen, "float32", S)
+    route = md.dispatch_route(S, MOE_E, K)
+    d = _check_dispatch(torch, md, x, gw, gb, C, K, "gshard", route)
+    names = [n for n in _kernel_names(torch, lambda: md.fused_moe_dispatch(
+        x, gw, gb, num_expert=MOE_E, capacity=C, top_k=K)) if "moe_" in n]
+    _, comb, val, _, _ = md.reference_moe_dispatch(
+        x, gw, gb, num_expert=MOE_E, capacity=C, top_k=K)
+    eo = torch.randn(MOE_E * C, MOE_M, device="cuda", generator=gen)
+    c = _check_combine(torch, md, "float32", eo, val, comb)
+    _log(f"moe f32 training shape S={S} C={C} k={K} gshard, {route}: "
+         f"dispatch near ties {d['near_ties']}, picks differing "
+         f"{d['flipped']} ({d['flipped_off_tie']} off a near tie), exact "
+         f"{d['exact']}, dropped {d['dropped']}, val/me/ce "
+         f"{d['val_rel']:.2e}/{d['me_rel']:.2e}/{d['ce_rel']:.2e} "
+         f"{'ok' if d['ok'] else 'FAIL'}; one call launched {names}; "
+         f"combine vs kernel form {c['max_rel_vs_kernel_form']:.2e}, vs "
+         f"einsum {c['einsum_share']:.2e} {'ok' if c['ok'] else 'FAIL'}")
+    want = MOE_ROUTE_KERNELS[route]
+    if not (d["ok"] and c["ok"]) or route != "three_pass" \
+            or len(names) != len(want) \
+            or not all(sum(k in n for n in names) == 1 for k in want):
+        raise AssertionError(f"MoE kernels at the training shape: dispatch "
+                             f"{d}, combine {c}, kernels {names}")
+    eo_pad = torch.cat([eo, eo.new_zeros(1, MOE_M)])
+    kw = dict(num_expert=MOE_E, capacity=C, top_k=K)
+    with torch.no_grad():
+        disp_ms = _time_held_ms(torch, lambda: md.fused_moe_dispatch(
+            x, gw, gb, **kw), 20)
+        disp_plain = _time_held_ms(torch, lambda: md.reference_moe_dispatch(
+            x, gw, gb, **kw), 5, warmup=1)
+        comb_ms = _time_held_ms(torch, lambda: md.fused_moe_combine(
+            eo, val, comb), 20)
+        comb_plain = _time_held_ms(torch, lambda: md.combine_kernel_reference(
+            eo, val, comb), 5, warmup=1)
+        comb_lib = _time_held_ms(torch, lambda: torch.nn.functional.
+                                 embedding_bag(comb, eo_pad,
+                                               per_sample_weights=val,
+                                               mode="sum",
+                                               padding_idx=MOE_E * C), 20)
+    kept = int((comb < MOE_E * C).sum())
+    shape = f"S = {S}, M = {MOE_M}, E = {MOE_E}, C = {C}, top-2, f32"
+    specs = (("moe_dispatch", disp_ms, disp_plain, None,
+              2 * S * MOE_M * MOE_E, _dispatch_bytes(S, C, K, 4),
+              d["val_max_abs_err"], "none"),
+             ("moe_combine", comb_ms, comb_plain, comb_lib,
+              2 * kept * MOE_M, kept * MOE_M * 4 + S * MOE_M * 4 + S * K * 8,
+              c["max_abs_err"], "F.embedding_bag(mode='sum', "
+              "per_sample_weights), held"))
+    for key, ms, plain, lib, flops, nbytes, err, lib_what in specs:
+        bound, by = _bound(flops, nbytes, "float32")
+        res[key]["at_training_moe"] = dict(
+            shape=shape, route=route, ms=ms, plain_ms=plain, bound_ms=bound,
+            bound_by=by, library_ms=lib, library=lib_what, max_abs_err=err,
+            dropped=d["dropped"], kernels=names)
+        _log(f"{key} at {shape}: kernel {ms:.4f} ms, plain {plain:.4f} ms, "
+             f"bound {bound:.5f} ms ({by}: {nbytes / 1e6:.3f} MB), library "
+             + (f"{lib:.4f} ms" if lib is not None else "none")
+             + f"; max_abs_err {err:.3e}")
+
+
+def phase_training_moe(torch, np, res):
+    from paddle_tpu_torch.kernels import flash_attention as fa
+    from paddle_tpu_torch.kernels import moe_dispatch as md
+    _moe_train_main(torch, np, res)
+    torch.cuda.empty_cache()
+    _moe_fused_check(torch, np, res)
+    torch.cuda.empty_cache()
+    _moe_kernel_vs_plain(torch, np, res)
+    torch.cuda.empty_cache()
+    _moe_attention_timings(torch, fa, res)
+    _moe_dispatch_timings(torch, md, res)
+
+
 # --------------------------------------------------------------------- main
 
 def main(argv=None) -> int:
@@ -3024,7 +3667,8 @@ def main(argv=None) -> int:
               ("serving_prefix", lambda: phase_serving_prefix(torch, np, res)),
               ("serving_int8", lambda: phase_serving_int8(torch, np, res)),
               ("serving_moe", lambda: phase_serving_moe(torch, np, res)),
-              ("training", lambda: phase_training(torch, np, res))]
+              ("training", lambda: phase_training(torch, np, res)),
+              ("training_moe", lambda: phase_training_moe(torch, np, res))]
     for name, fn in phases:
         t0 = time.perf_counter()
         try:
@@ -3074,6 +3718,15 @@ def main(argv=None) -> int:
     for key in ("moe_dispatch", "moe_combine"):
         res[key]["launches"] = moe[key]
         res[key]["launches_by_path"] = dict(serving_moe=moe[key])
+    # training_moe: the attention passes of the timed bf16 steps (a), the
+    # MoE kernels of the fused f32 steps (b)
+    for key, count in (("flash", "flash"), ("flash_bwd_dq", "flash_bwd_dq"),
+                       ("flash_bwd_dkv", "flash_bwd_dkv")):
+        res[key]["launches_by_path"]["training_moe"] = \
+            res["training_moe_bf16"]["launches"][count]
+    for key in ("moe_dispatch", "moe_combine"):
+        res[key]["launches_by_path"]["training_moe"] = \
+            res["training_moe_fused"]["launches"][key]
     print(json.dumps({"kernels": [
         {k: v for k, v in res[key].items() if k != "shapes"} for key in (
             "flash", "flash_bwd_dq", "flash_bwd_dkv", "paged",

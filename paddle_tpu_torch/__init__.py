@@ -8,11 +8,16 @@ Importing it has no global side effects: no device is touched, no kernel
 is built (the CUDA kernels compile at their first launch, see
 :mod:`paddle_tpu_torch.kernels._build`), and no RNG state is seeded.
 
-Ported so far, GPT serving and training (``ROADMAP.md`` lists the rest):
+Ported so far, GPT serving and training, ERNIE-MoE serving and
+pretraining (``ROADMAP.md`` lists the rest):
 
 - :mod:`.models.gpt` — the GPT model family as ``nn.Module``s and the
   training step (one CUDA graph per batch shape on the card);
-- :mod:`.optimizer.lr` — the learning-rate schedulers that feed it;
+- :mod:`.models.ernie`, :mod:`.incubate.distributed.models.moe` — the
+  ERNIE-MoE model, its gates and ``MoELayer``, in training and eval;
+- :mod:`.optimizer` — ``SGD``, ``Momentum``, ``Adam``, ``AdamW`` and the
+  learning-rate schedulers; :mod:`.nn.clip` — the gradient clips;
+- :mod:`.amp` — paddle's O1 ``auto_cast``;
 - :mod:`.kernels.flash_attention` — FlashAttention-2 forward and
   backward (CUDA);
 - :mod:`.kernels.paged_attention` — paged-attention decode and ragged

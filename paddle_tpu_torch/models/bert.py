@@ -6,10 +6,11 @@ Only what ERNIE needs: :class:`BertEmbeddings` (word + position, plus token
 type only when ids are given, then LayerNorm),
 :func:`additive_attention_mask`, and the post-LN
 :class:`TransformerEncoderLayer` with its :class:`MultiHeadAttention`, in
-paddle's ``[in, out]`` weight layout. Attention is the JAX
-``_sdpa_ref``'s: f32 products times ``1 / sqrt(d)``, a bool mask as
--1e30 or an additive mask added, the softmax in f32 cast back. Dropout is
-not ported (every ERNIE-MoE config has it at 0).
+paddle's ``[in, out]`` weight layout. Attention is
+:func:`paddle_tpu_torch.nn.functional.scaled_dot_product_attention`, as in
+the JAX layer: the flash kernel without a mask, the dense ``_sdpa_ref``
+with one (the eager generator's causal bool mask, a padding mask).
+Dropout is not ported (every ERNIE-MoE config has it at 0).
 """
 from __future__ import annotations
 
@@ -20,12 +21,10 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..nn import LayerNorm, Linear
+from ..nn.functional import scaled_dot_product_attention
 
 __all__ = ["BertConfig", "BertEmbeddings", "MultiHeadAttention",
-           "TransformerEncoderLayer", "additive_attention_mask",
-           "attention_reference"]
-
-_NEG_INF = -1e30
+           "TransformerEncoderLayer", "additive_attention_mask"]
 
 
 @dataclass
@@ -58,22 +57,6 @@ def additive_attention_mask(attention_mask):
         return attention_mask
     m = attention_mask[:, None, None, :].float()
     return (1.0 - m) * -1e4
-
-
-def attention_reference(q, k, v, attn_mask=None):
-    """Dense attention on ``[B, S, N, d]`` (the JAX ``_sdpa_ref`` without
-    dropout): scores times ``1 / sqrt(d)``, a bool ``attn_mask`` keeps
-    True entries (others -1e30), a float one is added; f32 softmax cast to
-    q's dtype."""
-    scale = 1.0 / q.shape[-1] ** 0.5
-    logits = torch.einsum("bshd,bthd->bhst", q, k) * scale
-    if attn_mask is not None:
-        if attn_mask.dtype == torch.bool:
-            logits = logits.masked_fill(~attn_mask, _NEG_INF)
-        else:
-            logits = logits + attn_mask.to(logits.dtype)
-    probs = torch.softmax(logits.float(), -1).to(q.dtype)
-    return torch.einsum("bhst,bthd->bshd", probs, v)
 
 
 class _Embedding(nn.Module):
@@ -137,9 +120,9 @@ class MultiHeadAttention(nn.Module):
         b, s = query.shape[:2]
         split = lambda t: t.reshape(t.shape[0], t.shape[1], self.num_heads,
                                     self.head_dim)
-        out = attention_reference(split(self.q_proj(query)),
-                                  split(self.k_proj(key)),
-                                  split(self.v_proj(value)), attn_mask)
+        out = scaled_dot_product_attention(
+            split(self.q_proj(query)), split(self.k_proj(key)),
+            split(self.v_proj(value)), attn_mask, training=self.training)
         return self.out_proj(out.reshape(b, s, self.embed_dim))
 
 

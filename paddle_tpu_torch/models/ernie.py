@@ -8,8 +8,14 @@ through :func:`paddle_tpu_torch.models.convert.ernie_moe_state_dict_from_numpy`.
 :func:`stack_ernie_moe_weights` gives the serving engine's ``(params,
 kinds)`` layout and :class:`ErnieMoeGenerator` is its eager oracle.
 
-Eval only: the MLM loss and the gates' aux loss wait for the MoE training
-slice (ROADMAP.md, Queue 1, item 1); a forward in training mode raises.
+Training: :meth:`ErnieMoeForPretraining.forward_with_mlm_loss` is the MLM
+loss (the head and the chunked cross entropy of
+:func:`~paddle_tpu_torch.models.gpt.fused_mlm_cross_entropy`) plus, in
+training, ``aux_loss_weight`` times the gates' load-balance loss; with
+:func:`paddle_tpu_torch.amp.auto_cast` it casts as the JAX model does
+under paddle's O1 lists. Each MoE layer's gate draws its random routing
+from a generator of its own, seeded from the model's seed and the layer's
+index (:func:`_gate_seed`).
 """
 from __future__ import annotations
 
@@ -20,16 +26,25 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..amp import amp_cast
 from ..device import resolve_device
 from ..framework.random import make_generator
 from ..incubate.distributed.models.moe import ExpertLayer, MoELayer
 from ..nn import LayerNorm, Linear
 from .bert import (BertConfig, BertEmbeddings, MultiHeadAttention,
                    TransformerEncoderLayer, additive_attention_mask)
+from .gpt import fused_mlm_cross_entropy
 
 __all__ = ["ErnieMoeConfig", "ernie_moe_tiny_config", "ernie_moe_base_config",
            "ErnieMoeModel", "ErnieMoeForPretraining", "ErnieMoeGenerator",
            "stack_ernie_moe_weights"]
+
+
+def _gate_seed(seed, layer):
+    """The seed of the random numbers layer ``layer``'s gate draws in
+    training (distinct from the weight generators' ``seed`` and ``seed +
+    1``)."""
+    return 1_000_003 * (int(seed) + 2) + int(layer)
 
 
 @dataclass
@@ -73,7 +88,8 @@ class _MoeFfnBlock(nn.Module):
     """Post-LN encoder block with an MoE FFN: ``ln1(x + attn(x))``, then
     ``ln2(x + moe(x))``."""
 
-    def __init__(self, cfg: ErnieMoeConfig, generator: torch.Generator):
+    def __init__(self, cfg: ErnieMoeConfig, generator: torch.Generator,
+                 gate_seed=None):
         super().__init__()
         std, dev = cfg.initializer_range, generator.device
         self.attn = MultiHeadAttention(
@@ -87,7 +103,8 @@ class _MoeFfnBlock(nn.Module):
              for _ in range(cfg.num_experts)],
             gate={"type": "gshard", "top_k": cfg.top_k},
             capacity_factor=cfg.capacity_factor,
-            fused_dispatch=cfg.fused_dispatch, generator=generator, std=std)
+            fused_dispatch=cfg.fused_dispatch, generator=generator, std=std,
+            seed=gate_seed)
         self.ln2 = LayerNorm(cfg.hidden_size, cfg.layer_norm_eps, device=dev)
 
     def forward(self, x, src_mask=None):
@@ -130,7 +147,7 @@ class ErnieMoeModel(nn.Module):
             initializer_range=cfg.initializer_range)
         self.embeddings = BertEmbeddings(bcfg, generator=gen)
         self.layers = nn.ModuleList(
-            _MoeFfnBlock(cfg, gen)
+            _MoeFfnBlock(cfg, gen, _gate_seed(seed, i))
             if cfg.moe_every and (i + 1) % cfg.moe_every == 0
             else _DenseBlock(cfg, gen)
             for i in range(cfg.num_hidden_layers))
@@ -172,7 +189,54 @@ class ErnieMoeForPretraining(nn.Module):
     def forward(self, input_ids, token_type_ids=None, attention_mask=None):
         h = self.ernie(input_ids, token_type_ids, attention_mask)
         h = self.layer_norm(F.gelu(self.transform(h)))
-        return h @ self.decoder_weight.t() + self.decoder_bias
+        h, w = amp_cast("matmul", h, self.decoder_weight)
+        return h @ w.t() + self.decoder_bias
+
+    def gate_aux_loss(self):
+        """The sum of the MoE gates' load-balance losses from the last
+        forward (each read and cleared), or None where no gate holds one
+        (eval, or read already)."""
+        total = None
+        for sub in self.ernie.modules():
+            gate = getattr(sub, "gate", None)
+            if getattr(gate, "has_loss", False):
+                loss = gate.get_loss()
+                total = loss if total is None else total + loss
+        return total
+
+    def forward_with_mlm_loss(self, input_ids, masked_lm_labels,
+                              token_type_ids=None, attention_mask=None,
+                              aux_loss_weight=0.01, nonfinite_guard=False):
+        """The MLM loss over ``masked_lm_labels`` (``-100`` ignored) through
+        the chunked cross entropy, whose ``[tokens, V]`` f32 logits never
+        exist whole; in training plus ``aux_loss_weight`` times
+        :meth:`gate_aux_loss`. ``nonfinite_guard`` replaces a non-finite
+        loss by 0 (:func:`_guard_nonfinite`, a host sync)."""
+        h = self.ernie(input_ids, token_type_ids, attention_mask)
+        loss = _ernie_mlm_head_loss(self, h, masked_lm_labels)
+        if self.training and aux_loss_weight:
+            aux = self.gate_aux_loss()
+            if aux is not None:
+                loss = loss + aux_loss_weight * aux
+        if nonfinite_guard:
+            loss = _guard_nonfinite(loss)
+        return loss
+
+
+def _ernie_mlm_head_loss(model, h, masked_lm_labels):
+    """The MLM head's GELU transform and LayerNorm, then the fused chunked
+    cross entropy over the tied decoder weight."""
+    h = model.layer_norm(F.gelu(model.transform(h)))
+    return fused_mlm_cross_entropy(h, model.decoder_weight,
+                                   model.decoder_bias, masked_lm_labels)
+
+
+def _guard_nonfinite(loss):
+    """A non-finite loss becomes 0, so its step changes nothing. Branches
+    on the loss's value: the host waits for the device."""
+    if torch.isfinite(loss):
+        return loss
+    return torch.zeros_like(loss)
 
 
 # ---------------------------------------------------------------------------

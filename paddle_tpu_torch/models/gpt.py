@@ -40,6 +40,7 @@ __all__ = [
     "stack_gpt_weights", "sample_logits", "flash_attention_gate", "gpt_block",
     "gpt_stacked_param_shapes", "model_flops_per_token",
     "parallel_cross_entropy", "vocab_parallel_cross_entropy",
+    "fused_mlm_cross_entropy",
     "gpt_tiny_config", "gpt_345m_config", "gpt_1p3b_config", "gpt_13b_config",
 ]
 
@@ -260,6 +261,22 @@ def vocab_parallel_cross_entropy(h, wte_local, labels, mp_axis=None,
         loss_mask = loss_mask.to(loss.dtype)
         return (loss * loss_mask).sum() / loss_mask.sum().clamp_min(1.0)
     return loss.mean()
+
+
+def fused_mlm_cross_entropy(h, weight, bias, labels):
+    """The encoders' MLM head + cross entropy (BERT/ERNIE): ``h [B, S, H]``
+    the transformed hidden state, ``weight [V, H]`` the tied embedding,
+    ``bias [V]``, ``labels [B, S]`` with ``-100`` ignored through the loss
+    mask (those labels become -1, whose target term the cross entropy
+    zeroes). Over :func:`vocab_parallel_cross_entropy`, so more than 2048
+    tokens at V >= 16384 go through in checkpointed chunks. Paddle's
+    "fused_mlm_loss" is on neither ``auto_cast`` list: it runs in h's
+    dtype."""
+    labels = labels.long()
+    ignore = labels == -100
+    return vocab_parallel_cross_entropy(
+        h, weight.to(h.dtype), torch.where(ignore, -1, labels),
+        loss_mask=(~ignore).float(), bias=bias)
 
 
 # ---------------------------------------------------------------------------

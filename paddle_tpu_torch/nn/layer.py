@@ -8,6 +8,8 @@ mean and the biased variance over the last dim, ``(x - mean) /
 sqrt(var + eps)``, then the weight and bias, in the input dtype.
 
 Parameters are drawn from an explicit ``torch.Generator`` on its device.
+Under :func:`paddle_tpu_torch.amp.auto_cast` both cast their inputs as the
+JAX ops "linear" (white list) and "layer_norm" (black list) do.
 """
 from __future__ import annotations
 
@@ -16,11 +18,14 @@ import math
 import torch
 from torch import nn
 
+from ..amp import amp_cast
+
 __all__ = ["Linear", "LayerNorm", "layer_norm"]
 
 
 def layer_norm(x, weight, bias, eps):
     """Paddle's layer norm over the last dim (var + sqrt)."""
+    x, weight, bias = amp_cast("layer_norm", x, weight, bias)
     mu = x.mean(-1, keepdim=True)
     var = x.var(-1, keepdim=True, unbiased=False)
     return (x - mu) / torch.sqrt(var + eps) * weight + bias
@@ -44,7 +49,8 @@ class Linear(nn.Module):
         self.bias = nn.Parameter(torch.zeros(out_features, device=dev))
 
     def forward(self, x):
-        return x @ self.weight + self.bias
+        x, w, b = amp_cast("linear", x, self.weight, self.bias)
+        return x @ w + b
 
 
 class LayerNorm(nn.Module):

@@ -1,0 +1,264 @@
+"""Optimizer base and the first-order optimizers (counterpart of
+``paddle_tpu/optimizer/optimizer.py``): ``SGD``, ``Momentum``, ``Adam`` and
+``AdamW``, with paddle's regularizers (``L1Decay``, ``L2Decay``),
+per-parameter ``regularizer`` and ``optimize_attr``, ``grad_clip``, a float
+or an :class:`~paddle_tpu_torch.optimizer.lr.LRScheduler` as the learning
+rate, and ``state_dict``/``set_state_dict``.
+
+The updates are the JAX package's expressions, written with torch ops over
+each parameter in turn under ``torch.no_grad`` and stored in place; Adam
+keeps its moments and beta powers in f32 for bf16/f16 parameters, as the
+JAX one does.
+
+Parameter names. ``parameters`` may be a module, ``(name, tensor)`` pairs
+(``module.named_parameters()``) or bare tensors. The names are the
+qualified names of ``named_parameters()``; bare tensors take their index
+in the list. ``AdamW``'s ``apply_decay_param_fun`` is called with that
+name, where paddle passes its own unique names (``linear_0.w_0``), which
+the port's parameters do not have; with bare tensors it raises. The names
+also key ``state_dict`` (``"{name}_{accumulator}"``).
+"""
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from .lr import LRScheduler
+
+__all__ = ["L1Decay", "L2Decay", "Optimizer", "SGD", "Momentum", "Adam",
+           "AdamW"]
+
+
+class L2Decay:
+    def __init__(self, coeff=0.0):
+        self.coeff = coeff
+
+
+class L1Decay:
+    def __init__(self, coeff=0.0):
+        self.coeff = coeff
+
+
+def _named(parameters):
+    """``(names, params, named)`` from a module, ``(name, tensor)`` pairs
+    or tensors; ``named`` says whether the names are qualified names."""
+    if parameters is None:
+        return None, None, False
+    if isinstance(parameters, nn.Module):
+        parameters = parameters.named_parameters()
+    items = list(parameters)
+    if items and isinstance(items[0], tuple):
+        return [n for n, _ in items], [p for _, p in items], True
+    return [str(i) for i in range(len(items))], items, False
+
+
+class Optimizer:
+    def __init__(self, learning_rate=0.001, parameters=None,
+                 weight_decay=None, grad_clip=None, name=None):
+        self._learning_rate = learning_rate
+        self._names, self._parameter_list, self._named = _named(parameters)
+        self._name_of = {id(p): n for n, p in zip(
+            self._names or (), self._parameter_list or ())}
+        self._grad_clip = grad_clip
+        if isinstance(weight_decay, float):
+            weight_decay = L2Decay(weight_decay)
+        self._regularization = weight_decay
+        self._accumulators: dict[str, dict[int, torch.Tensor]] = {}
+        self._pending_state = None
+        self._global_step = 0
+
+    # -- lr -----------------------------------------------------------------
+    def get_lr(self) -> float:
+        if isinstance(self._learning_rate, LRScheduler):
+            return self._learning_rate()
+        return self._learning_rate
+
+    def set_lr(self, value):
+        self._learning_rate = float(value)
+
+    # -- state --------------------------------------------------------------
+    def _name(self, p):
+        return self._name_of[id(p)]
+
+    def _acc(self, name, p, init):
+        """Accumulator ``name`` of ``p``: from a pending ``set_state_dict``
+        if it holds one, else ``init()``."""
+        d = self._accumulators.setdefault(name, {})
+        if id(p) not in d:
+            key = f"{self._name(p)}_{name}"
+            pending = self._pending_state or {}
+            if key in pending:
+                v = init()
+                v.copy_(torch.as_tensor(pending[key]))
+                d[id(p)] = v
+            else:
+                d[id(p)] = init()
+        return d[id(p)]
+
+    def state_dict(self):
+        state = {}
+        for acc, d in self._accumulators.items():
+            for n, p in zip(self._names or (), self._parameter_list or ()):
+                if id(p) in d:
+                    state[f"{n}_{acc}"] = d[id(p)]
+        state["global_step"] = self._global_step
+        if isinstance(self._learning_rate, LRScheduler):
+            state["LR_Scheduler"] = self._learning_rate.state_dict()
+        return state
+
+    def set_state_dict(self, state):
+        if "global_step" in state:
+            gs = state["global_step"]
+            self._global_step = int(gs.item() if hasattr(gs, "item") else gs)
+        if "LR_Scheduler" in state and isinstance(self._learning_rate,
+                                                  LRScheduler):
+            self._learning_rate.set_state_dict(state["LR_Scheduler"])
+        # accumulators made already take their value now, the others when
+        # first made
+        for acc, d in self._accumulators.items():
+            for n, p in zip(self._names or (), self._parameter_list or ()):
+                key = f"{n}_{acc}"
+                if key in state and id(p) in d:
+                    d[id(p)].copy_(torch.as_tensor(state[key]))
+        self._pending_state = state
+
+    # -- step ---------------------------------------------------------------
+    def _collect_params_grads(self):
+        if self._parameter_list is None:
+            raise ValueError("optimizer created without parameters")
+        return [(p, p.grad) for p in self._parameter_list
+                if p.requires_grad and getattr(p, "trainable", True)
+                and p.grad is not None]
+
+    @torch.no_grad()
+    def step(self):
+        params_grads = self._collect_params_grads()
+        if not params_grads:
+            return
+        reg = []
+        for p, g in params_grads:    # a parameter's regularizer wins
+            r = getattr(p, "regularizer", None)
+            if r is None:
+                r = self._regularization
+            if isinstance(r, L2Decay) and r.coeff:
+                g = g + r.coeff * p
+            elif isinstance(r, L1Decay) and r.coeff:
+                g = g + r.coeff * torch.sign(p)
+            reg.append((p, g))
+        params_grads = reg
+        if self._grad_clip is not None:
+            params_grads = self._grad_clip(params_grads)
+        self._global_step += 1
+        for p, g in params_grads:
+            lr = self.get_lr() * getattr(p, "optimize_attr", {}).get(
+                "learning_rate", 1.0)
+            self._update_param(p, g, lr)
+
+    def _update_param(self, p, g, lr):
+        raise NotImplementedError
+
+    def clear_grad(self, set_to_zero=False):
+        for p in self._parameter_list or ():
+            if set_to_zero and p.grad is not None:
+                p.grad.zero_()
+            else:
+                p.grad = None
+
+    clear_gradients = clear_grad
+
+    def minimize(self, loss, startup_program=None, parameters=None,
+                 no_grad_set=None):
+        """Dygraph ``minimize``: ``loss.backward()``, then :meth:`step`."""
+        loss.backward()
+        self.step()
+        return None, None
+
+
+class SGD(Optimizer):
+    def __init__(self, learning_rate=0.001, parameters=None,
+                 weight_decay=None, grad_clip=None, name=None,
+                 multi_precision=False):
+        super().__init__(learning_rate, parameters, weight_decay, grad_clip,
+                         name)
+
+    def _update_param(self, p, g, lr):
+        p.copy_(p - lr * g.to(p.dtype))
+
+
+class Momentum(Optimizer):
+    def __init__(self, learning_rate=0.001, momentum=0.9, parameters=None,
+                 use_nesterov=False, weight_decay=None, grad_clip=None,
+                 multi_precision=False, rescale_grad=1.0, name=None):
+        super().__init__(learning_rate, parameters, weight_decay, grad_clip,
+                         name)
+        self._momentum = momentum
+        self._use_nesterov = use_nesterov
+
+    def _update_param(self, p, g, lr):
+        v = self._acc("velocity", p, lambda: torch.zeros_like(p))
+        v.copy_(self._momentum * v + g)
+        if self._use_nesterov:
+            p.copy_(p - lr * (g + self._momentum * v))
+        else:
+            p.copy_(p - lr * v)
+
+
+class Adam(Optimizer):
+    def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
+                 epsilon=1e-8, parameters=None, weight_decay=None,
+                 grad_clip=None, lazy_mode=False, multi_precision=False,
+                 name=None):
+        super().__init__(learning_rate, parameters, weight_decay, grad_clip,
+                         name)
+        self._beta1, self._beta2, self._epsilon = beta1, beta2, epsilon
+
+    def _update_param(self, p, g, lr):
+        dt = torch.float32 if p.dtype in (torch.float16, torch.bfloat16) \
+            else p.dtype
+        g = g.to(dt)
+        zeros = lambda: torch.zeros(p.shape, dtype=dt, device=p.device)  # noqa: E731
+        ones = lambda: torch.ones((), dtype=dt, device=p.device)  # noqa: E731
+        m = self._acc("moment1", p, zeros)
+        v = self._acc("moment2", p, zeros)
+        b1p = self._acc("beta1_pow", p, ones)
+        b2p = self._acc("beta2_pow", p, ones)
+        b1p.mul_(self._beta1)
+        b2p.mul_(self._beta2)
+        m.copy_(self._beta1 * m + (1 - self._beta1) * g)
+        v.copy_(self._beta2 * v + (1 - self._beta2) * g.square())
+        mhat = m / (1 - b1p)
+        vhat = v / (1 - b2p)
+        update = lr * mhat / (vhat.sqrt() + self._epsilon)
+        p.copy_(p - update.to(p.dtype))
+
+
+class AdamW(Adam):
+    """Adam with decoupled weight decay: ``p *= 1 - lr * coeff`` before the
+    Adam update, for every parameter ``apply_decay_param_fun(name)``
+    approves (all when it is None)."""
+
+    def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
+                 epsilon=1e-8, parameters=None, weight_decay=0.01,
+                 lr_ratio=None, apply_decay_param_fun=None, grad_clip=None,
+                 lazy_mode=False, multi_precision=False, name=None):
+        super().__init__(learning_rate, beta1, beta2, epsilon, parameters,
+                         None, grad_clip, lazy_mode, multi_precision, name)
+        if apply_decay_param_fun is not None and not self._named:
+            raise ValueError(
+                "apply_decay_param_fun needs parameter names: pass the "
+                "module or its named_parameters() as parameters")
+        self._coeff = weight_decay if isinstance(weight_decay, float) else \
+            getattr(weight_decay, "coeff", 0.01)
+        self._apply_decay_param_fun = apply_decay_param_fun
+        self._lr_ratio = lr_ratio
+
+    def _update_param(self, p, g, lr):
+        if self._lr_ratio is not None:
+            lr = lr * self._lr_ratio(p)
+        decay = self._coeff
+        if self._apply_decay_param_fun is not None and \
+                not self._apply_decay_param_fun(self._name(p)):
+            decay = 0.0
+        if decay:
+            p.mul_(1.0 - lr * decay)
+        super()._update_param(p, g, lr)

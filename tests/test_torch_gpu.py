@@ -1281,3 +1281,65 @@ def test_mma_sync_route_runs_the_parent_kernels():
     assert any("flash_bwd_dkv_tc_kernel" in n for n in ran), ran
     assert tfa.kernel_route(q, k, v, do) == "wgmma"
     assert any("_wg_kernel" in n for n in _routes_taken(q, k, v, do))
+
+
+def _ernie_train(model, ids, labels, steps=3):
+    """``steps`` AdamW steps of ``forward_with_mlm_loss`` (f32): the losses,
+    the first step's gradients and the parameters after the last step."""
+    from paddle_tpu_torch.optimizer import AdamW
+    opt = AdamW(learning_rate=1e-3, parameters=model.parameters())
+    losses = []
+    for i in range(steps):
+        loss = model.forward_with_mlm_loss(ids, labels)
+        loss.backward()
+        if i == 0:
+            grads = {n: p.grad.detach().cpu().clone()
+                     for n, p in model.named_parameters()
+                     if p.grad is not None}
+        opt.step()
+        opt.clear_grad()
+        losses.append(loss.item())
+    return losses, grads, {n: p.detach().cpu()
+                           for n, p in model.named_parameters()}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("fused", [False, True])
+def test_ernie_moe_training_step_matches_cpu(fused):
+    """The tiny ERNIE-MoE training step on the card (flash kernels, and
+    with ``fused`` the MoE dispatch and combine kernels) against the same
+    step on the CPU (the plain versions), f32, every gate's random routing
+    off: 3 AdamW steps' losses to 1e-5 relative, each first-step gradient
+    to 1e-4 of its norm (the key bias's, 0 up to rounding, to 1e-4 of the
+    norm of all), every parameter after 3 steps within 2e-5 (AdamW steps
+    of lr = 1e-3 whose sign rounding may set near a gradient of 0)."""
+    import copy
+    from paddle_tpu_torch.incubate.distributed.models.moe import GShardGate
+    dev = _cuda()
+    cfg = ternie.ernie_moe_tiny_config(fused_dispatch=fused)
+    cpu = ternie.ErnieMoeForPretraining(
+        ternie.ErnieMoeModel(cfg, seed=0, device="cpu")).train()
+    for m in cpu.modules():
+        if isinstance(m, GShardGate):
+            m.random_routing = False
+    card = copy.deepcopy(cpu).to(dev)
+    rng = np.random.default_rng(0)
+    ids, labels = (torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 64)))
+                   for _ in range(2))
+    n0 = (tfa.launches, tfa.dq_launches, tfa.dkv_launches,
+          tmd.dispatch_launches, tmd.combine_launches)
+    got = _ernie_train(card, ids.to(dev), labels.to(dev))
+    n1 = (tfa.launches, tfa.dq_launches, tfa.dkv_launches,
+          tmd.dispatch_launches, tmd.combine_launches)
+    want = _ernie_train(cpu, ids, labels)
+    L, moe = cfg.num_hidden_layers, cfg.num_hidden_layers // cfg.moe_every
+    assert [b - a for a, b in zip(n0, n1)] == \
+        [3 * L] * 3 + [3 * moe * fused] * 2
+    np.testing.assert_allclose(got[0], want[0], rtol=1e-5)
+    total = sum(g.square().sum().item() for g in want[1].values()) ** 0.5
+    for name, g in want[1].items():
+        den = total if name.endswith("k_proj.bias") else g.norm().item()
+        assert (got[1][name] - g).norm().item() <= 1e-4 * den, name
+    for name, p in want[2].items():
+        torch.testing.assert_close(got[2][name], p, rtol=0, atol=2e-5,
+                                   msg=name)

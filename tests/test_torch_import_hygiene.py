@@ -22,6 +22,13 @@ _PROBE = textwrap.dedent("""
                                               "paddle_tpu_torch.")]
     for name in names:
         importlib.import_module(name)
+    # the training slice's modules are among them
+    assert {"paddle_tpu_torch.amp.auto_cast",
+            "paddle_tpu_torch.optimizer.optimizer",
+            "paddle_tpu_torch.nn.clip",
+            "paddle_tpu_torch.nn.functional.attention",
+            "paddle_tpu_torch.incubate.distributed.models.moe.grad_clip",
+            } <= set(names), names
     import chip_smoke
     bad = sorted(m for m in sys.modules
                  if m == "jax" or m.startswith(("jax.", "jaxlib",
@@ -35,9 +42,12 @@ _PROBE = textwrap.dedent("""
         from paddle_tpu_torch.models.gpt import (GPTForPretraining,
                                                  GPTModel, gpt_tiny_config)
         from paddle_tpu_torch.serving import PagePool, ServingEngine
+        from paddle_tpu_torch.models.ernie import (ErnieMoeModel,
+                                                   ernie_moe_tiny_config)
         model = GPTForPretraining(GPTModel(gpt_tiny_config(), device="cpu"))
         for make in (lambda: ServingEngine(model),
                      lambda: GPTModel(gpt_tiny_config()),
+                     lambda: ErnieMoeModel(ernie_moe_tiny_config()),
                      lambda: PagePool(4, 4, 1, 1, 4)):
             try:
                 make()
@@ -69,4 +79,4 @@ def test_port_imports_no_jax_and_never_falls_back_to_cpu():
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr[-3000:]
     n = int(out.stdout.split("MODULES")[1])
-    assert n >= 14
+    assert n >= 42

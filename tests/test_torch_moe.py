@@ -5,6 +5,8 @@ Same numpy inputs on both sides, on the CPU: the JAX fused kernels run in
 interpret mode, the port's wrappers through their plain versions (the CUDA
 kernels are held to those on the card, ``tests/test_torch_gpu.py``).
 """
+import types
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -240,16 +242,21 @@ def test_moe_layer_matches_jax(cf, fused):
 
 
 def test_moe_layer_training_and_other_gates_raise():
+    """Training and the other gate types run since the MoE training slice;
+    what still raises is the ep axis (a moe_group of more than one rank)
+    and an unknown gate type."""
     gen = torch.Generator().manual_seed(0)
+    two_ranks = types.SimpleNamespace(nranks=2)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        MoELayer(8, [ExpertLayer(8, 16, generator=gen) for _ in range(2)],
+                 moe_group=two_ranks, generator=gen)
+    with pytest.raises(AssertionError, match="unknown gate type"):
+        MoELayer(8, [ExpertLayer(8, 16, generator=gen)],
+                 gate={"type": "top1"}, generator=gen)
     layer = MoELayer(8, [ExpertLayer(8, 16, generator=gen) for _ in range(2)],
                      generator=gen)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        layer(torch.zeros(3, 8))                 # a new module trains
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        GShardGate(8, 2, 1, generator=gen)(torch.zeros(3, 8))
-    with pytest.raises(NotImplementedError):
-        MoELayer(8, [ExpertLayer(8, 16, generator=gen)], gate={"type":
-                                                               "switch"})
+    assert layer.training and layer(torch.zeros(3, 8)).shape == (3, 8)
+    assert isinstance(layer.gate, GShardGate) and layer.gate.has_loss
     with pytest.raises(ValueError, match="gate_kind"):
         tmd.fused_moe_dispatch(torch.zeros(3, 8), torch.zeros(8, 2),
                                torch.zeros(2), num_expert=2, capacity=2,

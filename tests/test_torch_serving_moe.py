@@ -302,6 +302,4 @@ def test_engine_surface_and_errors(models, engines):
         MoEServingEngine(tmodel.ernie, device="cpu")
     with pytest.raises(ValueError, match="position table"):
         MoEServingEngine(tmodel, max_seq_len=100, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tmodel.train()(torch.zeros(1, 3, dtype=torch.long))
     tmodel.eval()
