@@ -2,7 +2,7 @@
 
     python3 chip_smoke.py [--json-out PATH] [--parent ROOT]
 
-Twelve phases, one result per line:
+Thirteen phases, one result per line:
 
 1. device and build — the card's name and power limit, and the build of
    every CUDA kernel from ``paddle_tpu_torch/csrc`` with nvcc for sm_90a;
@@ -136,10 +136,24 @@ Twelve phases, one result per line:
    widths, B = 2: the loss and every gradient with the kernels against
    the same model with every kernel on its plain version, f32 and bf16;
    then the flash backward's errors over 6 seeds at [16, 512, 12, 64]
-   non-causal beside the training shape's, and rows 1-3 and 7-8 checked
-   and timed at this path's shapes (the dispatch and combine at S = 8192
-   in f32, as O1 hands them over) beside their plain versions, bounds and
-   library calls.
+   non-causal beside the training shape's (no seed over the elementwise
+   limit, and the kernel's Delta the plain version's bit for bit, at
+   both), and rows 1-3 and 7-8 checked and timed at this path's shapes
+   (the dispatch and combine at S = 8192 in f32, as O1 hands them over)
+   beside their plain versions, bounds and library calls; (d) the same
+   step through ``ParallelTrainStep``, captured as one CUDA graph: the
+   first call (the eager step, then the capture) and one replay, then 10
+   timed replays with the default gates (random routing on): tokens/s,
+   step p50, host staging + launch against the device's span, the
+   profiled busy share, MFU, peak memory, capture time and pool bytes,
+   host syncs in the first call and in a replay (none allowed), the
+   flash launches each replay counts (12/12/12), the gates' generators
+   moving with every replay, and 5 steps under the eager switch from the
+   same weights (captured = eager printed); captured = eager bit for bit
+   over 5 steps with random routing off, on the gather path and with
+   ``fused_dispatch=True`` (6 dispatch and 6 combine launches a replay);
+   a ``GradScaler`` whose overflowing replay must keep every parameter
+   and accumulator, set ``last_found_inf`` and halve the scale.
 
 Exits non-zero, without the final line, when CUDA is unavailable or any
 phase fails. The last line is ``{"ok": true, "device": {...}}``; the line
@@ -286,6 +300,9 @@ MOE_TRAIN_B, MOE_TRAIN_S, MOE_TRAIN_WARMUP, MOE_TRAIN_STEPS = 16, 512, 2, 10
 # an element whose gradient is near 0 may step either way, so one lr)
 MOE_FUSED_STEPS = 3
 MOE_PARAM_TOL = 1e-4
+# ParallelTrainStep captured against its eager switch: this many steps
+# from one seed, every loss and parameter bit-equal
+MOE_GRAPH_STEPS = 5
 # kernel against plain at 2 layers (one dense, one MoE; base widths;
 # B = 2, S = 512), the loss and every gradient (|a - b| / |b| as in the
 # fused check): f32 the trainer's limits
@@ -3066,12 +3083,19 @@ def _moe_paths(model):
     return out
 
 
-def _moe_batch(torch, np, cfg, b, seed):
-    """ids and labels in [0, V), as bench_ernie_moe draws them."""
+def _moe_np_batch(np, cfg, b=MOE_TRAIN_B, seed=0):
+    """ids and labels in [0, V), as bench_ernie_moe draws them, as numpy
+    arrays."""
     rng = np.random.default_rng(seed)
-    return tuple(torch.from_numpy(rng.integers(
-        0, cfg.vocab_size, (b, MOE_TRAIN_S)).astype(np.int64)).cuda()
-        for _ in range(2))
+    return tuple(rng.integers(0, cfg.vocab_size, (b, MOE_TRAIN_S))
+                 .astype(np.int64) for _ in range(2))
+
+
+def _moe_batch(torch, np, cfg, b, seed):
+    """ids and labels in [0, V), as bench_ernie_moe draws them, on the
+    card."""
+    return tuple(torch.from_numpy(a).cuda()
+                 for a in _moe_np_batch(np, cfg, b, seed))
 
 
 def _moe_step(torch, model, opt, ids, labels, bf16):
@@ -3428,7 +3452,10 @@ def _flash_bwd_seed_stats(torch, fa, shape, causal, fused, seeds=6):
         o, lse = fa.flash_attention_fwd(q, k, v, causal)
         got = fa.flash_attention_bwd(q, k, v, o, lse, do, causal)
         refs = fa.flash_attention_bwd_reference(q, k, v, o, lse, do, causal)
-        row = {}
+        _, delta = fa._launch_dq(q, k, v, o, lse, do, causal,
+                                 1.0 / math.sqrt(d), 0)
+        row = dict(delta_bit_equal=bool(torch.equal(
+            delta, (do.float() * o.float()).sum(-1).transpose(1, 2))))
         for name, g, r in zip(("dq", "dk", "dv"), got, refs):
             err, elem, rms, _ = _grad_err(g, r)
             abs_tol = TOL["flash_bwd", "bfloat16"] * max(
@@ -3441,6 +3468,7 @@ def _flash_bwd_seed_stats(torch, fa, shape, causal, fused, seeds=6):
         del got, refs, o, lse
     over = {g: sum(r[g]["elem_over"] for r in rows) for g in ("dq", "dk",
                                                                "dv")}
+    over["delta_not_bit_equal"] = sum(not r["delta_bit_equal"] for r in rows)
     return rows, over
 
 
@@ -3469,13 +3497,14 @@ def _moe_attention_timings(torch, fa, res):
         shape=list(MOE_ATTN_SHAPE), rows=rows, over=over,
         training_shape_rows=rows128, training_shape_over=over128)
     bad = [i for i, r in enumerate(rows)
-           if not all(r[g]["within_abs_and_rms"] for g in r)]
-    if bad or over["dv"] or over["dq"] > over128["dq"] \
-            or over["dk"] > over128["dk"]:
+           if not all(r[g]["within_abs_and_rms"] for g in ("dq", "dk", "dv"))]
+    if bad or any(over.values()) or any(over128.values()):
         raise AssertionError(
-            f"flash backward at {MOE_ATTN_SHAPE}: seeds over the max-abs or "
-            f"rms limit {bad}; elementwise over {over} against {over128} at "
-            f"the training shape (dv must be 0, dq and dk no more)")
+            f"flash backward: seeds over the max-abs or rms limit at "
+            f"{MOE_ATTN_SHAPE} {bad}; seeds over the elementwise limit, or "
+            f"whose Delta is not the plain version's bit for bit: {over} at "
+            f"{MOE_ATTN_SHAPE}, {over128} at the training shape (every count "
+            f"must be 0)")
     gen = torch.Generator(device="cuda").manual_seed(5)
     q, k, v, do = (torch.randn(b, s, n, d, device="cuda", generator=gen).to(
         torch.bfloat16) for _ in range(4))
@@ -3609,6 +3638,266 @@ def _moe_dispatch_timings(torch, md, res):
              + f"; max_abs_err {err:.3e}")
 
 
+def _moe_loss_bf16(model, ids, labels):
+    """``forward_with_mlm_loss`` under ``auto_cast(bf16)``: the loss_fn a
+    user hands ParallelTrainStep (auto_cast inside it, as in the JAX
+    tests)."""
+    from paddle_tpu_torch.amp import auto_cast
+    with auto_cast(dtype="bfloat16"):
+        return model.forward_with_mlm_loss(ids, labels)
+
+
+def _moe_train_step(torch, model):
+    from paddle_tpu_torch.distributed import ParallelTrainStep
+    from paddle_tpu_torch.optimizer import AdamW
+    return ParallelTrainStep(model, AdamW(
+        learning_rate=1e-4, parameters=model.named_parameters()),
+        _moe_loss_bf16)
+
+
+def _moe_captured_main(torch, np, res):
+    """(d) bench_ernie_moe's step through ParallelTrainStep, captured as
+    one CUDA graph: the first call (eager step, then the capture) and one
+    replay to warm up, 10 timed replays, the default gates (random routing
+    on); then 5 steps under the eager switch from the same weights."""
+    from paddle_tpu_torch.distributed.fleet import train_step
+    model = _moe_model(torch, 0)
+    cfg = model.config
+    B, S, L = MOE_TRAIN_B, MOE_TRAIN_S, cfg.num_hidden_layers
+    ids, labels = _moe_np_batch(np, cfg)
+    step = _moe_train_step(torch, model)
+    gens = train_step._generators(model)
+    paths = _moe_paths(model)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    first = []
+    t0 = time.perf_counter()
+    first_syncs = _syncs_in(torch, lambda: first.append(step(ids, labels)))
+    losses = [first[0].item()]
+    first_s = time.perf_counter() - t0
+    losses.append(step(ids, labels).item())
+    ev = lambda: torch.cuda.Event(enable_timing=True)    # noqa: E731
+    walls, issues, spans, per_step, gate_states = [], [], [], [], []
+    _zero_counts()
+    for _ in range(MOE_TRAIN_STEPS):
+        c0 = _counts()
+        e0, e1 = ev(), ev()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        e0.record()
+        loss = step(ids, labels)
+        t1 = time.perf_counter()
+        e1.record()
+        e1.synchronize()
+        walls.append(time.perf_counter() - t0)
+        issues.append(t1 - t0)
+        spans.append(e0.elapsed_time(e1))
+        losses.append(loss.item())
+        per_step.append({k: v - c0[k] for k, v in _counts().items()})
+        gate_states.append([g.get_state().tolist() for g in gens])
+    counts = _counts()
+    peak = torch.cuda.max_memory_allocated()
+    want = dict(flash=L, flash_bwd_dq=L, flash_bwd_dkv=L)
+    for i, got in enumerate(per_step):
+        _check_counts(f"training_moe (d) replay {i}", got, want)
+    timed = losses[2:]
+    if not all(math.isfinite(x) for x in timed) or timed[-1] >= timed[0]:
+        raise AssertionError(f"training_moe (d) losses not finite or not "
+                             f"falling: {losses}")
+    moved = all(a != b for a, b in zip(gate_states, gate_states[1:]))
+    if len(gens) != L // cfg.moe_every or not moved:
+        raise AssertionError(f"training_moe (d): {len(gens)} gate "
+                             f"generators, their states move with every "
+                             f"replay: {moved}")
+    replay_syncs = _syncs_in(torch, lambda: step(ids, labels))
+    if first_syncs or replay_syncs:
+        raise AssertionError(f"training_moe (d) host syncs: first call "
+                             f"{first_syncs}, replay {replay_syncs}")
+    wall, by_name = _device_time(torch, lambda: step(ids, labels).item())
+    groups = _group_times(by_name)
+    busy_us = sum(by_name.values())
+    fpt = _moe_flops_per_token(cfg, S)
+    tokens_per_s = B * S * MOE_TRAIN_STEPS / sum(walls)
+    e2e = dict(tokens_per_s=tokens_per_s,
+               step_p50_ms=_pct(walls, 0.5) * 1e3,
+               step_ms=[x * 1e3 for x in walls],
+               host_issue_p50_ms=_pct(issues, 0.5) * 1e3,
+               host_issue_ms=[x * 1e3 for x in issues],
+               device_span_p50_ms=_pct(spans, 0.5),
+               mfu=tokens_per_s * fpt / PEAK_FLOPS["bfloat16"],
+               flops_per_token=fpt, max_memory_allocated_bytes=peak,
+               first_call_s=first_s, capture_s=step.capture_s,
+               graphs=len(step.captured_signatures),
+               pool_bytes=step.graph_pool_bytes(), losses=losses,
+               host_syncs_first_call=len(first_syncs),
+               host_syncs_replay=len(replay_syncs),
+               gate_generators=len(gens), launches=counts,
+               launches_per_step=per_step[0], moe_paths=paths,
+               profiled_wall_ms=wall * 1e3,
+               profiled_device_ms=busy_us / 1e3 if by_name else None,
+               busy_share=busy_us / 1e6 / wall if by_name else None,
+               device_ms_by_group={g: us / 1e3 for g, us in sorted(
+                   groups.items(), key=lambda kv: -kv[1])})
+    del step, model, loss
+    torch.cuda.empty_cache()
+    # the same weights under the eager switch: does random routing draw
+    # the same numbers captured and eager?
+    model = _moe_model(torch, 0)
+    step = _moe_train_step(torch, model)
+    with train_step._eager_step():
+        eager = [step(ids, labels).item() for _ in range(5)]
+    del step, model
+    torch.cuda.empty_cache()
+    e2e.update(eager_losses_routing_on=eager,
+               captured_equals_eager_routing_on=losses[:5] == eager)
+    a = res.get("training_moe_bf16", {})
+    _log(f"training_moe (d) ParallelTrainStep captured, bf16 O1, random "
+         f"routing on ({paths}): first call (eager step + capture) "
+         f"{first_s * 1e3:.1f} ms, capture {e2e['capture_s'] * 1e3:.1f} ms, "
+         f"graphs {e2e['graphs']}, pool {e2e['pool_bytes']} bytes, host "
+         f"syncs in the first call {len(first_syncs)}, in a replay "
+         f"{len(replay_syncs)}; {MOE_TRAIN_STEPS} timed replays: "
+         f"{tokens_per_s:.1f} tokens/s, step p50 {e2e['step_p50_ms']:.2f} ms "
+         f"(steps {', '.join(f'{x:.2f}' for x in e2e['step_ms'])}), host "
+         f"stage + launch p50 {e2e['host_issue_p50_ms']:.3f} ms against the "
+         f"device's span between events p50 {e2e['device_span_p50_ms']:.2f} "
+         f"ms, MFU {e2e['mfu']:.4f}, peak memory {peak} bytes; on "
+         f"{res.get('nvidia_smi')}")
+    _log(f"training_moe (a) eager in the same call: "
+         f"{a.get('tokens_per_s', float('nan')):.1f} tokens/s, step p50 "
+         f"{a.get('step_p50_ms', float('nan')):.2f} ms, host issue p50 "
+         f"{a.get('host_issue_p50_ms', float('nan')):.2f} ms, device span "
+         f"p50 {a.get('device_span_p50_ms', float('nan')):.2f} ms, busy "
+         f"share {a.get('busy_share')}, MFU {a.get('mfu', float('nan')):.4f}"
+         f", peak memory {a.get('max_memory_allocated_bytes')} bytes")
+    _log(f"training_moe (d) losses (first call, warm-up replay, timed): "
+         f"{', '.join(f'{x:.6f}' for x in losses)}; launches per replay "
+         f"{per_step[0]}, want {want}; gate generators {len(gens)}, their "
+         f"states move with every replay")
+    _log(f"training_moe (d) random routing on, the first 5 steps captured "
+         f"{losses[:5]} vs eager {eager}: "
+         f"{'bit-equal' if losses[:5] == eager else 'not bit-equal'}")
+    if by_name:
+        _log(f"profile one captured training_moe step: wall {wall * 1e3:.2f} "
+             f"ms, device busy {busy_us / 1e3:.2f} ms (share "
+             f"{e2e['busy_share']:.3f}); " + ", ".join(
+                 f"{g} {ms:.3f} ms"
+                 for g, ms in e2e["device_ms_by_group"].items()))
+        for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:12]:
+            _log(f"  {us / 1e3:9.3f} ms  {name[:100]}")
+    else:
+        _log("profile one captured training_moe step: device time not "
+             "measured (the profiler saw no CUDA activity)")
+    res["training_moe_captured"] = e2e
+
+
+def _moe_captured_checks(torch, np, res):
+    """(d) checks: ParallelTrainStep captured against the same step under
+    the eager switch, from the same weights, random routing off, on the
+    gather path and with fused_dispatch=True: every loss and parameter bit
+    for bit over MOE_GRAPH_STEPS steps, and the launches each replay
+    counts (the fused run's are the MoE kernels' main-path launches)."""
+    from paddle_tpu_torch.distributed.fleet import train_step
+    out = {}
+    for name, fused in (("gather", False), ("fused", True)):
+        runs = {}
+        for how in ("eager", "captured"):
+            model = _moe_model(torch, 3, fused_dispatch=fused)
+            _no_random_routing(model)
+            cfg, L = model.config, model.config.num_hidden_layers
+            ids, labels = _moe_np_batch(np, cfg)
+            step = _moe_train_step(torch, model)
+            losses, per_step = [], []
+            with train_step._eager_step() if how == "eager" \
+                    else contextlib.nullcontext():
+                for i in range(MOE_GRAPH_STEPS):
+                    if i == 1:
+                        _zero_counts()
+                    c0 = _counts()
+                    losses.append(step(ids, labels).item())
+                    per_step.append({k: v - c0[k]
+                                     for k, v in _counts().items()})
+            runs[how] = dict(losses=losses, per_step=per_step,
+                             counts=_counts(), paths=_moe_paths(model),
+                             params={n: p.detach().clone() for n, p in
+                                     model.named_parameters()})
+            del step, model
+            torch.cuda.empty_cache()
+        e, c = runs["eager"], runs["captured"]
+        diff = max((v.float() - e["params"][k].float()).abs().max().item()
+                   for k, v in c["params"].items())
+        same = c["losses"] == e["losses"] and diff == 0.0
+        n_moe = L // cfg.moe_every
+        want = dict(flash=L, flash_bwd_dq=L, flash_bwd_dkv=L)
+        if fused:
+            want.update(moe_dispatch=n_moe, moe_combine=n_moe)
+        for how, run in runs.items():
+            for i, got in enumerate(run["per_step"]):
+                _check_counts(f"training_moe (d) {name} {how} step {i}",
+                              got, want)
+        out[name] = dict(losses=c["losses"], eager_losses=e["losses"],
+                         max_abs_param_diff=diff, equal_to_eager=same,
+                         replay_launches=c["counts"],
+                         launches_per_replay=c["per_step"][1],
+                         moe_paths=c["paths"])
+        _log(f"training_moe (d) {name}, bf16 O1, random routing off "
+             f"({c['paths']}): captured vs eager over {MOE_GRAPH_STEPS} "
+             f"steps: losses {c['losses']} vs {e['losses']}, parameters max "
+             f"|diff| {diff:.3e}: {'bit-equal' if same else 'DIFFER'}; "
+             f"launches per replay {c['per_step'][1]} (replays "
+             f"{MOE_GRAPH_STEPS - 1}: {c['counts']})")
+        del runs, e, c
+        torch.cuda.empty_cache()
+    res["training_moe_graph_check"] = out
+    if not all(out[k]["equal_to_eager"] for k in out):
+        raise AssertionError("captured ERNIE-MoE step differs from eager")
+
+
+def _moe_scaler_check(torch, np, res):
+    """(d) GradScaler under capture: a small f32 Linear whose loss is
+    lin(x).sum() with x all ones, so every gradient is 3: finite at a
+    scale of 2^126, inf at 2^127. The first call (eager, then the capture)
+    at 2^126; then the scale is set to 2^127, and that replay must keep
+    every parameter and accumulator bit for bit, set last_found_inf and
+    halve the scale; the next replay must update."""
+    from paddle_tpu_torch.amp import GradScaler
+    from paddle_tpu_torch.distributed import ParallelTrainStep
+    from paddle_tpu_torch.nn import Linear
+    from paddle_tpu_torch.optimizer import AdamW
+    lin = Linear(768, 768, generator=torch.Generator("cuda").manual_seed(0))
+    opt = AdamW(1e-3, parameters=lin.named_parameters())
+    scaler = GradScaler(init_loss_scaling=2.0 ** 126,
+                        decr_every_n_nan_or_inf=1)
+    step = ParallelTrainStep(lin, opt, lambda m, x: m(x).sum(),
+                             scaler=scaler)
+    x = np.ones((3, 768), np.float32)
+    params = list(lin.parameters())
+    tensors = lambda: params + opt._state_tensors(params)  # noqa: E731
+    step(x)
+    good = step.last_found_inf
+    before = [t.detach().clone() for t in tensors()]
+    scaler.set_init_loss_scaling(2.0 ** 127)
+    step(x)
+    kept = all(torch.equal(a, b) for a, b in zip(before, tensors()))
+    out = dict(first_found_inf=good, overflow_found_inf=step.last_found_inf,
+               kept=kept, scale_after_overflow=scaler._scale)
+    step(x)
+    out.update(next_found_inf=step.last_found_inf,
+               moved=not torch.equal(before[0], lin.weight),
+               scale_after_next=scaler._scale,
+               graphs=len(step.captured_signatures))
+    ok = (not out["first_found_inf"] and out["overflow_found_inf"] and kept
+          and out["scale_after_overflow"] == 2.0 ** 126
+          and not out["next_found_inf"] and out["moved"]
+          and out["scale_after_next"] == 2.0 ** 126 and out["graphs"] == 1)
+    _log(f"training_moe (d) GradScaler under capture (f32 Linear 768x768, "
+         f"AdamW): {out} {'ok' if ok else 'FAIL'}")
+    res["training_moe_scaler"] = out
+    if not ok:
+        raise AssertionError("GradScaler under capture did not skip the "
+                             "overflowing replay")
+
+
 def phase_training_moe(torch, np, res):
     from paddle_tpu_torch.kernels import flash_attention as fa
     from paddle_tpu_torch.kernels import moe_dispatch as md
@@ -3620,6 +3909,11 @@ def phase_training_moe(torch, np, res):
     torch.cuda.empty_cache()
     _moe_attention_timings(torch, fa, res)
     _moe_dispatch_timings(torch, md, res)
+    torch.cuda.empty_cache()
+    _moe_captured_main(torch, np, res)
+    torch.cuda.empty_cache()
+    _moe_captured_checks(torch, np, res)
+    _moe_scaler_check(torch, np, res)
 
 
 # --------------------------------------------------------------------- main
@@ -3718,15 +4012,15 @@ def main(argv=None) -> int:
     for key in ("moe_dispatch", "moe_combine"):
         res[key]["launches"] = moe[key]
         res[key]["launches_by_path"] = dict(serving_moe=moe[key])
-    # training_moe: the attention passes of the timed bf16 steps (a), the
-    # MoE kernels of the fused f32 steps (b)
-    for key, count in (("flash", "flash"), ("flash_bwd_dq", "flash_bwd_dq"),
-                       ("flash_bwd_dkv", "flash_bwd_dkv")):
+    # training_moe: the replays of ParallelTrainStep's graph, part (d): the
+    # attention passes of the 10 timed replays (default gates, the gather
+    # path), the MoE kernels of the fused run's replays
+    for key in ("flash", "flash_bwd_dq", "flash_bwd_dkv"):
         res[key]["launches_by_path"]["training_moe"] = \
-            res["training_moe_bf16"]["launches"][count]
+            res["training_moe_captured"]["launches"][key]
     for key in ("moe_dispatch", "moe_combine"):
         res[key]["launches_by_path"]["training_moe"] = \
-            res["training_moe_fused"]["launches"][key]
+            res["training_moe_graph_check"]["fused"]["replay_launches"][key]
     print(json.dumps({"kernels": [
         {k: v for k, v in res[key].items() if k != "shapes"} for key in (
             "flash", "flash_bwd_dq", "flash_bwd_dkv", "paged",

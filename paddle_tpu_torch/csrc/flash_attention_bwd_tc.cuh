@@ -30,8 +30,8 @@
 //        owns 16 query rows: S = Q K^T and dP = dO V^T (16 x 64 a tile,
 //        f32 in registers), P and dS in registers, dS packed to bf16 as
 //        the A fragments of dQ += dS K (16 x D). The block also computes
-//        Delta for its rows and writes it out for the dK/dV pass, launched
-//        after it on the same stream.
+//        Delta for its rows (two threads a row) and writes it out for the
+//        dK/dV pass, launched after it on the same stream.
 //   dKV: a block per (64-row key tile, batch * KV head). K and V stay in
 //        shared memory; for each of the g query heads of its group it
 //        streams Q, dO, LSE and Delta tiles from the first query tile that
@@ -45,10 +45,17 @@
 // and each tile's product of dQ, dK and dV, is added to its f32 sum on the
 // CUDA cores (tc::mma_rn). Where the dK/dV pass's P lies near a bf16
 // rounding tie (its low bits within tc::kTieMargin ulps of one), S is
-// summed again in the plain version's order (tc::dot_in_order), so that P
+// summed again in the plain version's order (tc::dots_in_order), so that P
 // rounds for dV as there: a sum in another order flipped such roundings
 // and put dv over its elementwise limit on 1 of 6 random inputs, which
-// the recompute removes for +32% on the pass (PERF.md). The
+// the recompute removes for +32% on the pass (PERF.md). dS is rounded for
+// dQ and dK the same way in the full-width instances (D = 16, 32, 64 and
+// 128 at their own width): where it lies near a tie (within
+// tc::kDsTieMargin), both passes sum S and dP again in the plain order
+// and round P (dP - Delta) scale as the plain version does, and Delta
+// itself is summed in the plain version's order (tc::delta_in_order), so
+// that dS rounds as there: flipped roundings of dS put dq and dk over
+// their limit on 1 of 6 inputs each. The
 // operands stay bf16 in shared memory in an XOR-swizzled layout, read by
 // ldmatrix (.trans for the [k][n] operands: K in dS K, dO in P^T dO, Q in
 // dS^T Q) without bank conflicts. Streamed tiles arrive by cp.async 16-byte
@@ -68,8 +75,13 @@
 // 49 KB at D = 64, so two blocks share an SM. Registers: at most 255 a
 // thread for two blocks of 128 threads an SM (__launch_bounds__(128, 2)).
 // ptxas for sm_90a (chip_smoke.py prints it from the build log):
-// dQ 255 registers at D = 128 and at D = 64, no spills but 4 bytes at the
-// full D = 64 instance; dK/dV 255 at D = 128, 186 at D = 64, no spills.
+// dQ 255 registers at D = 128 and at D = 64, no spills but 60 bytes at the
+// full D = 64 instance (4 before dS's guard; taking the tile's keys in two
+// passes of 32 there removed them but cost more time than they do);
+// dK/dV 255 at D = 128, ~180 at D = 64, no spills. Both passes sit at the
+// register limit at D = 128: the guards' recompute reads its operands
+// one chain after the other, 16 bytes a step, and the masked instances
+// leave dS's guard out, since each wider form spilled there.
 #pragma once
 
 #include "common.cuh"
@@ -149,26 +161,17 @@ flash_bwd_dq_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   tc::load_tile<kB, kNT, D, FULL>(sV, tc::Strided{vb, v_ss}, 0, Sk, hd);
   tc::cp_async_commit();
 
-  // Delta = rowsum(dO * O) in f32, two threads a row (adjacent lanes),
-  // each over every other 16-byte chunk
+  // Delta = rowsum(dO * O) in f32, in the plain version's order
+  // (tc::delta_in_order), two threads a row (adjacent lanes)
   {
-    constexpr int VEC = Vec<bf16>::N;
     const int r = tid >> 1;
-    const int part = tid & 1;
-    float sum = 0.f;
-    if (q0 + r < Sq) {
-      for (int c = part * VEC; c < D; c += 2 * VEC) {
-        float tdo[VEC], to[VEC];
-        load_cols<bf16, FULL>(dob + (long long)(q0 + r) * do_ss, c, hd, tdo);
-        load_cols<bf16, FULL>(ob + (long long)(q0 + r) * o_ss, c, hd, to);
-#pragma unroll
-        for (int i = 0; i < VEC; ++i) sum = fmaf(tdo[i], to[i], sum);
-      }
-    }
-    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-    if (part == 0) {
-      del_s[r] = sum;
-      if (q0 + r < Sq) delta[row_base + q0 + r] = sum;
+    const bool valid = q0 + r < Sq;
+    const long long row = valid ? q0 + r : 0;
+    const float sum = tc::delta_in_order<D, FULL>(
+        dob + row * do_ss, ob + row * o_ss, hd, tid & 1);
+    if ((tid & 1) == 0) {
+      del_s[r] = valid ? sum : 0.f;
+      if (valid) delta[row_base + q0 + r] = sum;
     }
   }
 
@@ -203,6 +206,8 @@ flash_bwd_dq_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       dl_hi = del_s[r_lo + 8];
     }
 
+    const bool edge = (causal && k0 + kB - 1 > q_offset + q0) ||
+                      k0 + kB > Sk || q0 + kB > Sq;
     // S = Q K^T and dP = dO V^T: 16 rows x 64 keys a warp
     float s[8][4], dp[8][4];
 #pragma unroll
@@ -226,10 +231,17 @@ flash_bwd_dq_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       }
     }
 
-    // P and dS; dS rounded to bf16 as the A fragments of dS K
-    const bool edge = (causal && k0 + kB - 1 > q_offset + q0) ||
-                      k0 + kB > Sk || q0 + kB > Sq;
+    // P and dS = P (dP - Delta) scale, dS rounded to bf16 as the A
+    // fragments of dS K; where a dS lies near a bf16 rounding tie
+    // (within tc::kDsTieMargin), S and dP are summed again in the plain
+    // version's order and that half of the fragment is rewritten, so
+    // that dS rounds as there (a masked P is 0, and so is its dS).
+    // Rare: one vote a tile, then each lane walks its own flagged
+    // elements. Full-width instances only: the masked ones (head dims
+    // between 16, 32, 64 and 128) sit at their register limit without
+    // it.
     uint32_t ads[4][4];
+    uint32_t near = 0;
 #pragma unroll
     for (int nt = 0; nt < 8; ++nt) {
       float x[4];
@@ -247,9 +259,34 @@ flash_bwd_dq_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
           p = expf(sv - (e < 2 ? lse_lo : lse_hi));
         }
         x[e] = p * (dp[nt][e] - (e < 2 ? dl_lo : dl_hi)) * scale;
+        if constexpr (FULL)
+          near |= tc::near_tie<tc::kDsTieMargin>(x[e]) ? 1u << (nt * 4 + e)
+                                                       : 0u;
       }
       ads[nt >> 1][(nt & 1) * 2] = tc::pack_bf16(x[0], x[1]);
       ads[nt >> 1][(nt & 1) * 2 + 1] = tc::pack_bf16(x[2], x[3]);
+    }
+    if (__any_sync(0xffffffffu, near)) {
+      for (; near != 0; near &= near - 1) {
+        const int i = __ffs(near) - 1;
+        const int e = i & 3;
+        const int rl = r_lo + (e >> 1) * 8;
+        const int key = (i >> 2) * 8 + 2 * t + (e & 1);
+        float se, dpe;
+        tc::dots_in_order<D>(sQ, rl, stK, key, sdO, rl, stV, key, se, dpe);
+        const float p = tc::p_in_order(se, scale, e < 2 ? lse_lo : lse_hi);
+        const uint32_t bits = tc::pack_bf16(
+            tc::ds_in_order(p, dpe, e < 2 ? dl_lo : dl_hi, scale), 0.f);
+        // element (nt, e) is half e & 1 of word (nt & 1) * 2 + (e >> 1)
+        // of ads[nt >> 1]
+        const int word = (i >> 3) * 4 + ((i >> 2) & 1) * 2 + (e >> 1);
+        const int sh = 16 * (e & 1);
+#pragma unroll
+        for (int w = 0; w < 16; ++w)
+          if (w == word)
+            ads[w >> 2][w & 3] =
+                (ads[w >> 2][w & 3] & ~(0xffffu << sh)) | (bits << sh);
+      }
     }
 
     // dQ += dS K: K read transposed, as [key][d] = [k][n]; the tile's
@@ -260,7 +297,8 @@ flash_bwd_dq_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk) {
         uint32_t bk[4];
-        tc::ldsm_x4_trans(tc::addr_a<CPR>(stK, kk * 16, 2 * np, lane), bk);
+        tc::ldsm_x4_trans(
+            tc::addr_a<CPR>(stK, kk * 16, 2 * np, lane), bk);
         tc::mma_bf16(t0, ads[kk], bk[0], bk[1]);
         tc::mma_bf16(t1, ads[kk], bk[2], bk[3]);
       }
@@ -398,7 +436,12 @@ flash_bwd_dkv_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
         }
       }
 
-      // P^T and dS^T, rounded to bf16 as the A fragments of the products
+      // P^T and dS^T, rounded to bf16 as the A fragments of the products.
+      // P is rounded for dV and dS for dK: where either rounding lies near
+      // a tie (tc::near_tie), S and dP are summed again in the plain
+      // version's order, so that both round as there (a masked P is 0,
+      // never near a tie, and so is its dS). dS's in full-width instances
+      // only, as in the dQ pass.
       uint32_t ap[kQS / 16][4], ads[kQS / 16][4];
 #pragma unroll
       for (int nt = 0; nt < kQS / 8; ++nt) {
@@ -422,19 +465,29 @@ flash_bwd_dkv_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
             p[e] = expf(sv - l);
           }
           x[e] = p[e] * (dp[nt][e] - dl) * scale;
-          near |= tc::near_tie(p[e]) ? 1u << e : 0u;
+          near |= tc::near_tie(p[e]) ||
+                          (FULL && tc::near_tie<tc::kDsTieMargin>(x[e]))
+                      ? 1u << e
+                      : 0u;
         }
-        // P is rounded to bf16 for dV: where that rounding lies near a
-        // tie, S is summed again in the plain version's order, so that P
-        // rounds as there (a masked P is 0, never near a tie)
         if (__any_sync(0xffffffffu, near)) {
 #pragma unroll
           for (int e = 0; e < 4; ++e) {
             if (!(near >> e & 1)) continue;
-            const float se = tc::dot_in_order<D>(
-                sK, warp * 16 + g + (e >> 1) * 8, stQ, ql + (e & 1));
-            p[e] = expf(se * scale - ((e & 1) ? l2.y : l2.x));
-            x[e] = p[e] * (dp[nt][e] - ((e & 1) ? d2.y : d2.x)) * scale;
+            const int kr = warp * 16 + g + (e >> 1) * 8;
+            const int qr = ql + (e & 1);
+            const float dl = (e & 1) ? d2.y : d2.x;
+            if constexpr (FULL) {
+              float se, dpe;
+              tc::dots_in_order<D>(sK, kr, stQ, qr, sV, kr, stdO, qr, se,
+                                   dpe);
+              p[e] = tc::p_in_order(se, scale, (e & 1) ? l2.y : l2.x);
+              x[e] = tc::ds_in_order(p[e], dpe, dl, scale);
+            } else {  // P alone (as the masked dQ pass, dS is not held)
+              p[e] = tc::p_in_order(tc::dot_in_order<D>(sK, kr, stQ, qr),
+                                    scale, (e & 1) ? l2.y : l2.x);
+              x[e] = p[e] * (dp[nt][e] - dl) * scale;
+            }
           }
         }
         ap[nt >> 1][(nt & 1) * 2] = tc::pack_bf16(p[0], p[1]);

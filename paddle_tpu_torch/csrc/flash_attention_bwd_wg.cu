@@ -12,10 +12,10 @@
 //   P = exp(scale * Q K^T - LSE),  dP = dO V^T,
 //   dS = P * (dP - Delta) * scale,  dK = dS^T Q,  dV = bf16(P)^T dO,
 // P rounded to bf16 as the A operand of P^T dO, dS as the A operand of
-// dS^T Q, each output rounded once; where P lies near a bf16 rounding tie
-// S is summed again in the plain version's order (tc::near_tie), so that
-// P rounds for dV as there. GQA: dK/dV sum over the g query heads of a KV
-// head; causal with q_offset; ragged Sq, Sk and head dims masked in the
+// dS^T Q, each output rounded once; where P or dS lies near a bf16
+// rounding tie (tc::near_tie) S and dP are summed again in the plain
+// version's order, so that both round as there. GQA: dK/dV sum over the
+// g query heads of a KV head; causal with q_offset; ragged Sq, Sk and head dims masked in the
 // kernel.
 //
 // What bounds it on an H100: at the training shape (B = 12, S = 1024, 8
@@ -49,11 +49,11 @@
 // cores and added in f32 between them: chained over all of D, the bf16
 // roundings of dS moved enough to put dk over its elementwise limit on an
 // input where the mma.sync pass held it (tools/torch_flash_bwd_stats.py,
-// PERF.md). Where P lies near a bf16 tie (tc::near_tie) S is summed again
+// PERF.md). Where P or dS lies near a bf16 tie S and dP are summed again
 // in the plain order: the common path only keeps the least distance to a
-// tie while P is computed, and one warp vote a sub-step sends the rare
-// flagged elements to the recompute, so it keeps its instruction-level
-// parallelism.
+// tie while P and dS are computed, and one warp vote a sub-step sends the
+// rare flagged elements to the recompute, so it keeps its
+// instruction-level parallelism.
 #include "attention_wg.cuh"
 #include "common.cuh"
 #include "hopper.cuh"
@@ -112,18 +112,22 @@ __device__ __forceinline__ float ld_shared_f32(uint32_t a) {
   return v;
 }
 
-// sum over d of a[ra][d] * b[rb][d], rows of two 128-byte-swizzled
-// [rows][D] tiles, as a sequential f32 FMA from d = 0: the plain
-// versions' order (cuBLAS), bit for bit (tc::dot_in_order for these tiles)
+// tc::dots_in_order for these tiles: s = K[rk] . Q[rq] and dp = V[rk] .
+// dO[rq] (rows of 128-byte-swizzled [rows][D] tiles: K and V of rows_k
+// rows, Q and dO of rows_q rows), each as a sequential f32 FMA from d = 0,
+// the plain versions' order (cuBLAS), bit for bit, one chain after the
+// other
 template <int D>
-__device__ __forceinline__ float dot_in_order_sw128(uint32_t a, int rows_a,
-                                                    int ra, uint32_t b,
-                                                    int rows_b, int rb) {
-  float s = 0.f;
+__device__ __forceinline__ void dots_in_order_sw128(uint32_t sk, uint32_t sv,
+                                                    int rows_k, int rk,
+                                                    uint32_t sq, uint32_t sdo,
+                                                    int rows_q, int rq,
+                                                    float& s, float& dp) {
+  s = dp = 0.f;
 #pragma unroll 1
   for (int c = 0; c < D / 8; ++c) {
-    const uint4 x = tc::ld_shared_v4(hop::sw128_chunk(a, rows_a, ra, c));
-    const uint4 y = tc::ld_shared_v4(hop::sw128_chunk(b, rows_b, rb, c));
+    const uint4 x = tc::ld_shared_v4(hop::sw128_chunk(sk, rows_k, rk, c));
+    const uint4 y = tc::ld_shared_v4(hop::sw128_chunk(sq, rows_q, rq, c));
     const uint32_t xw[4] = {x.x, x.y, x.z, x.w}, yw[4] = {y.x, y.y, y.z, y.w};
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
@@ -131,7 +135,17 @@ __device__ __forceinline__ float dot_in_order_sw128(uint32_t a, int rows_a,
       s = fmaf(tc::bf16_hi(xw[j]), tc::bf16_hi(yw[j]), s);
     }
   }
-  return s;
+#pragma unroll 1
+  for (int c = 0; c < D / 8; ++c) {
+    const uint4 u = tc::ld_shared_v4(hop::sw128_chunk(sv, rows_k, rk, c));
+    const uint4 w = tc::ld_shared_v4(hop::sw128_chunk(sdo, rows_q, rq, c));
+    const uint32_t uw[4] = {u.x, u.y, u.z, u.w}, ww[4] = {w.x, w.y, w.z, w.w};
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      dp = fmaf(tc::bf16_lo(uw[j]), tc::bf16_lo(ww[j]), dp);
+      dp = fmaf(tc::bf16_hi(uw[j]), tc::bf16_hi(ww[j]), dp);
+    }
+  }
 }
 
 // s = K Q^T and dp = V dO^T over D (K and V: a warpgroup's K-major
@@ -273,10 +287,10 @@ __device__ __forceinline__ void dkv_consumer(const DkvParams& p, uint32_t base,
       float s[kQS / 8][4], dp[kQS / 8][4];
       scores_t<D>(s, dp, sK, sV, sQ, sdO, sub);
 
-      // P^T in place of S^T, dP^T - Delta in place of dP^T; tie: the least
-      // distance of a P's low 16 bits above 0x8000 - kTieMargin (wrapped),
-      // below 2 kTieMargin where a P lies near a bf16 rounding tie
-      uint32_t tie = 0xffffu;
+      // P^T in place of S^T and dS^T = P^T (dP^T - Delta) scale in place of
+      // dP^T; tie: the least tc::tie_distance of a P and of a dS (each
+      // below twice its margin where the value lies near a bf16 tie)
+      uint32_t tie = 0xffffu, tie_ds = 0xffffu;
 #pragma unroll
       for (int nt = 0; nt < kQS / 8; ++nt) {
         const int ql = sub + nt * 8 + 2 * t;  // query column of e = 0, 2
@@ -295,46 +309,56 @@ __device__ __forceinline__ void dkv_consumer(const DkvParams& p, uint32_t base,
           } else {
             pv = expf(sv - (e & 1 ? l2.y : l2.x));
           }
+          const float dl = e & 1 ? d2.y : d2.x;
           s[nt][e] = pv;
-          dp[nt][e] -= e & 1 ? d2.y : d2.x;
-          tie = min(tie, (__float_as_uint(pv) - (0x8000u - tc::kTieMargin)) &
-                             0xffffu);
+          dp[nt][e] = pv * (dp[nt][e] - dl) * p.scale;
+          tie = min(tie, tc::tie_distance<tc::kTieMargin>(pv));
+          tie_ds =
+              min(tie_ds, tc::tie_distance<tc::kDsTieMargin>(dp[nt][e]));
         }
       }
-      // P is rounded to bf16 for dV: where that rounding lies near a tie
-      // (tc::near_tie), S is summed again in the plain version's order, so
-      // that P rounds as there (a masked P is 0, never near a tie). Rare:
-      // one vote a sub-step, then each lane walks its own flagged elements.
-      if (__any_sync(0xffffffffu, tie < 2 * tc::kTieMargin)) {
+      // P is rounded to bf16 for dV and dS for dK: where either rounding
+      // lies near a tie, S and dP are summed again in the plain version's
+      // order, so that both round as there (a masked P is 0, never near a
+      // tie, and so is its dS). Rare: one vote a sub-step, then each lane
+      // walks its own flagged elements.
+      if (__any_sync(0xffffffffu, tie < 2 * tc::kTieMargin ||
+                                      tie_ds < 2 * tc::kDsTieMargin)) {
         uint32_t near = 0;
 #pragma unroll
         for (int i = 0; i < kQS / 2; ++i)
-          near |= tc::near_tie(s[i >> 2][i & 3]) ? 1u << i : 0u;
+          near |= tc::near_tie(s[i >> 2][i & 3]) ||
+                          tc::near_tie<tc::kDsTieMargin>(dp[i >> 2][i & 3])
+                      ? 1u << i
+                      : 0u;
         for (; near != 0; near &= near - 1) {
           const int i = __ffs(near) - 1;
           const int nt = i >> 2, e = i & 3;
+          const int kr = warp * 16 + g + (e >> 1) * 8;
           const int qr = sub + nt * 8 + 2 * t + (e & 1);
-          const float se = dot_in_order_sw128<D>(
-              sK, kRowsWG, warp * 16 + g + (e >> 1) * 8, sQ, kBQ, qr);
-          const float pv = expf(
-              se * p.scale - ld_shared_f32(lse_t + qr * 4));
+          float se, dpe;
+          dots_in_order_sw128<D>(sK, sV, kRowsWG, kr, sQ, sdO, kBQ, qr, se,
+                                 dpe);
+          const float pv =
+              tc::p_in_order(se, p.scale, ld_shared_f32(lse_t + qr * 4));
+          const float x = tc::ds_in_order(
+              pv, dpe, ld_shared_f32(del_t + qr * 4), p.scale);
 #pragma unroll
           for (int j = 0; j < kQS / 2; ++j)
-            if (j == i) s[j >> 2][j & 3] = pv;
+            if (j == i) {
+              s[j >> 2][j & 3] = pv;
+              dp[j >> 2][j & 3] = x;
+            }
         }
       }
-      // P^T and dS^T = P^T (dP^T - Delta) scale, rounded to bf16 as the A
-      // operands of the products
+      // P^T and dS^T rounded to bf16 as the A operands of the products
       uint32_t ap[kQS / 16][4], ads[kQS / 16][4];
 #pragma unroll
       for (int nt = 0; nt < kQS / 8; ++nt) {
-        float x[4];
-#pragma unroll
-        for (int e = 0; e < 4; ++e) x[e] = s[nt][e] * dp[nt][e] * p.scale;
         ap[nt >> 1][(nt & 1) * 2] = tc::pack_bf16(s[nt][0], s[nt][1]);
         ap[nt >> 1][(nt & 1) * 2 + 1] = tc::pack_bf16(s[nt][2], s[nt][3]);
-        ads[nt >> 1][(nt & 1) * 2] = tc::pack_bf16(x[0], x[1]);
-        ads[nt >> 1][(nt & 1) * 2 + 1] = tc::pack_bf16(x[2], x[3]);
+        ads[nt >> 1][(nt & 1) * 2] = tc::pack_bf16(dp[nt][0], dp[nt][1]);
+        ads[nt >> 1][(nt & 1) * 2 + 1] = tc::pack_bf16(dp[nt][2], dp[nt][3]);
       }
 
       // dV += P^T dO and dK += dS^T Q, dO and Q read MN-major

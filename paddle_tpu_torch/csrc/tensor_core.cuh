@@ -171,33 +171,125 @@ __device__ __forceinline__ float bf16_hi(uint32_t w) {
 // simulation of the tensor cores' truncation over 128 random products)
 constexpr uint32_t kTieMargin = 16;
 
-// does rounding x to bf16 (to nearest even) depend on its last few bits:
-// do its low 16 bits lie within kTieMargin of the midpoint 0x8000?
-__device__ __forceinline__ bool near_tie(float x) {
-  const uint32_t low = __float_as_uint(x) & 0xffffu;
-  return low - (0x8000u - kTieMargin) < 2u * kTieMargin;
+// the same for dS = P (dP - Delta) scale: P's error and dP's, a few ulps
+// of |dP| (Delta is summed in the plain order). Where dP - Delta cancels,
+// dP's error is more ulps of dS, but dS is then small beside the sums it
+// enters, and a flip of it stays far below the limits.
+constexpr uint32_t kDsTieMargin = 32;
+
+// the distance of x's low 16 bits above 0x8000 - margin (wrapped): below
+// 2 margin where rounding x to bf16 (to nearest even) lies within margin
+// ulps of a tie. Masked elements (0) lie far from one.
+template <uint32_t M>
+__device__ __forceinline__ uint32_t tie_distance(float x) {
+  return (__float_as_uint(x) - (0x8000u - M)) & 0xffffu;
 }
 
-// sum over d of a[ra][d] * b[rb][d], rows of two swizzled [rows][D] bf16
-// tiles, as a sequential f32 FMA from d = 0: the order of the plain
-// versions' f32 products (cuBLAS), bit for bit
+template <uint32_t M = kTieMargin>
+__device__ __forceinline__ bool near_tie(float x) {
+  return tie_distance<M>(x) < 2u * M;
+}
+
+// the sum over d of x[rx][d] * y[ry][d], rows of two swizzled [rows][D]
+// bf16 tiles, as a sequential f32 FMA from d = 0: the order of the plain
+// versions' f32 products (cuBLAS), bit for bit. dots_in_order: S (from Q
+// and K) and dP (from dO and V) one after the other (in one loop, the two
+// chains put the D = 128 instances over their registers).
 template <int D>
-__device__ __forceinline__ float dot_in_order(uint32_t a, int ra, uint32_t b,
-                                              int rb) {
+__device__ __forceinline__ float dot_in_order(uint32_t x, int rx, uint32_t y,
+                                              int ry) {
   constexpr int CPR = D / 8;
-  float s = 0.f;
+  float acc = 0.f;
 #pragma unroll 1
-  for (int c = 0; c < CPR; ++c) {
-    const uint4 x = ld_shared_v4(a + chunk_offset<CPR>(ra, c));
-    const uint4 y = ld_shared_v4(b + chunk_offset<CPR>(rb, c));
-    const uint32_t xw[4] = {x.x, x.y, x.z, x.w}, yw[4] = {y.x, y.y, y.z, y.w};
+  for (int k = 0; k < CPR; ++k) {
+    const uint4 u = ld_shared_v4(x + chunk_offset<CPR>(rx, k));
+    const uint4 v = ld_shared_v4(y + chunk_offset<CPR>(ry, k));
+    const uint32_t uw[4] = {u.x, u.y, u.z, u.w}, vw[4] = {v.x, v.y, v.z, v.w};
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
-      s = fmaf(bf16_lo(xw[j]), bf16_lo(yw[j]), s);
-      s = fmaf(bf16_hi(xw[j]), bf16_hi(yw[j]), s);
+      acc = fmaf(bf16_lo(uw[j]), bf16_lo(vw[j]), acc);
+      acc = fmaf(bf16_hi(uw[j]), bf16_hi(vw[j]), acc);
     }
   }
-  return s;
+  return acc;
+}
+
+template <int D>
+__device__ __forceinline__ void dots_in_order(uint32_t a, int ra, uint32_t b,
+                                              int rb, uint32_t c, int rc,
+                                              uint32_t e, int re, float& s,
+                                              float& dp) {
+  s = dot_in_order<D>(a, ra, b, rb);
+  dp = dot_in_order<D>(c, rc, e, re);
+}
+
+// P = exp(S scale - lse) and dS = P (dP - delta) scale from S and dP summed
+// in the plain version's order, each product and difference rounded where
+// the plain version rounds it (no contraction into an FMA): bit for bit
+// the plain backward's P and dS (before their bf16 rounding)
+__device__ __forceinline__ float p_in_order(float s, float scale, float lse) {
+  return expf(__fsub_rn(__fmul_rn(s, scale), lse));
+}
+__device__ __forceinline__ float ds_in_order(float p, float dp, float delta,
+                                             float scale) {
+  return __fmul_rn(__fmul_rn(p, __fsub_rn(dp, delta)), scale);
+}
+
+// Delta = the sum over d < hd of dO[d] O[d] (each product of two bf16 exact
+// in f32) for one row, in the order of the plain version's torch.sum over
+// the last dim on the card (ATen's reduce kernel, torch 2.11: one warp a
+// row; at hd = 128 lane l adds its elements 4l..4l+3 in order, below lane
+// l adds l, l + w, l + 2w, l + 3w (those below hd) in order, w =
+// min(2^floor(log2 hd), 32); then lane l < off adds lane l + off's sum for
+// off = w / 2, w / 4, .., 1). Here two threads (adjacent lanes, part =
+// lane & 1) take a row: each sums the reduce kernel's lanes of its parity
+// in that kernel's tree, and the two sums are added last, as the final
+// shuffle adds lanes 0 and 1. Lanes at or past w count as 0: adding 0 is
+// exact, so the tree of 32 lanes gives the tree of w. Both threads return
+// the row's Delta (chip_smoke.py checks it bit for bit against the plain
+// version).
+template <int D, bool FULL>
+__device__ __forceinline__ float delta_in_order(const __nv_bfloat16* dorow,
+                                                const __nv_bfloat16* orow,
+                                                int hd, int part) {
+  const int w = hd >= 32 ? 32 : 1 << (31 - __clz(hd));
+  // the reduce kernel's lane l's sum
+  auto lane = [&](int l) {
+    float v = 0.f;
+    if constexpr (FULL && D == 128) {  // rows 16-byte aligned
+      const uint2 x = *reinterpret_cast<const uint2*>(dorow + 4 * l);
+      const uint2 y = *reinterpret_cast<const uint2*>(orow + 4 * l);
+      v = bf16_lo(x.x) * bf16_lo(y.x);
+      v += bf16_hi(x.x) * bf16_hi(y.x);
+      v += bf16_lo(x.y) * bf16_lo(y.y);
+      v += bf16_hi(x.y) * bf16_hi(y.y);
+    } else {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int col = l + j * w;
+        if (l < w && col < hd)
+          v += __bfloat162float(dorow[col]) * __bfloat162float(orow[col]);
+      }
+    }
+    return v;
+  };
+  // the tree over this thread's lanes 2i + part: a_i = lane(2i + part) +
+  // lane(2i + part + 16), t_k = a_k + a_{k + 4}, u_m = t_m + t_{m + 2},
+  // r = u_0 + u_1; one u a pass of a loop, to bound the loads in flight
+  float r = 0.f;
+#pragma unroll 1
+  for (int m = 0; m < 2; ++m) {
+    float u = 0.f;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int k = m + 2 * h;
+      const float t = (lane(2 * k + part) + lane(2 * k + part + 16)) +
+                      (lane(2 * k + part + 8) + lane(2 * k + part + 24));
+      u = h == 0 ? t : u + t;
+    }
+    r = m == 0 ? u : r + u;
+  }
+  return r + __shfl_xor_sync(0xffffffffu, r, 1);
 }
 
 // the rows of a [S, hd] view with row stride ss (elements): a row source

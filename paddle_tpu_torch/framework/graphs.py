@@ -1,9 +1,11 @@
 """What the port's CUDA graphs share: launch accounting over replays, the
-garbage collector held off during a capture, flat input buffers and a
-pool's size. The serving engines' bucket programs
-(:mod:`paddle_tpu_torch.serving.graphs`) and the GPT training step
-(:class:`paddle_tpu_torch.models.gpt.GPTHybridTrainStep`) capture with
-these.
+garbage collector held off during a capture, flat input buffers, a
+training step's inputs staged through pinned memory, host syncs made
+errors, and a pool's size. The serving engines' bucket programs
+(:mod:`paddle_tpu_torch.serving.graphs`) and the training steps
+(:class:`paddle_tpu_torch.models.gpt.GPTHybridTrainStep`,
+:class:`paddle_tpu_torch.distributed.fleet.ParallelTrainStep`) capture
+with these.
 
 Launch accounting: the kernel wrappers count their launches in Python, and
 a replay runs no Python. So each graph records, at capture, what the
@@ -16,14 +18,17 @@ from __future__ import annotations
 import contextlib
 import gc
 import math
+import warnings
 
+import numpy as np
 import torch
 
 from ..kernels import flash_attention, int8_matmul, moe_dispatch, \
     paged_attention
 
 __all__ = ["read_counts", "add_counts", "counted", "no_gc", "unpack",
-           "pool_bytes"]
+           "pool_bytes", "sync_is_error", "StagedInputs", "eager_step",
+           "capturing_on"]
 
 _KERNEL_MODULES = (flash_attention, paged_attention, int8_matmul,
                    moe_dispatch)
@@ -93,3 +98,88 @@ def pool_bytes(pool):
     pool = tuple(pool)
     return sum(s["total_size"] for s in segs
                if tuple(s["segment_pool_id"]) == pool)
+
+
+# set only inside eager_step()
+_EAGER_ON_CUDA = False
+
+
+@contextlib.contextmanager
+def eager_step():
+    """Every training step (``GPTHybridTrainStep``, ``ParallelTrainStep``)
+    called inside runs eagerly on CUDA too: the yardstick the captured
+    steps are held against by ``chip_smoke.py`` and the card tests. No call
+    of the program enters it."""
+    global _EAGER_ON_CUDA
+    was, _EAGER_ON_CUDA = _EAGER_ON_CUDA, True
+    try:
+        yield
+    finally:
+        _EAGER_ON_CUDA = was
+
+
+def capturing_on(device):
+    """Does a training step on ``device`` capture and replay a graph (CUDA,
+    outside :func:`eager_step`)?"""
+    return device.type == "cuda" and not _EAGER_ON_CUDA
+
+
+@contextlib.contextmanager
+def sync_is_error():
+    """A CUDA call that waits for the device raises inside: it would fail
+    a capture, and here it fails with the op's name."""
+    was = torch.cuda.get_sync_debug_mode()
+    with warnings.catch_warnings():     # "a prototype feature"
+        warnings.simplefilter("ignore", UserWarning)
+        torch.cuda.set_sync_debug_mode("error")
+    try:
+        yield
+    finally:
+        torch.cuda.set_sync_debug_mode(was)
+
+
+class StagedInputs:
+    """A graph's static inputs in one device buffer: a tensor of each
+    ``(shape, dtype)`` of ``specs`` (:attr:`tensors`), then ``n_scalars``
+    0-d f32 tensors (:attr:`scalars`). :meth:`stage` writes a call's values
+    into a pinned host buffer of the same layout and moves it with one
+    non-blocking copy (as the serving engines' ``StepGraph.stage`` does);
+    values given as CUDA tensors are copied in on the device after it."""
+
+    def __init__(self, specs, n_scalars, device):
+        offsets, at = [], 0
+        for shape, dtype in specs:          # each tensor 16-byte aligned
+            offsets.append(at)
+            at += -(-math.prod(shape) * dtype.itemsize // 16) * 16
+        self.static = torch.empty(at + 4 * n_scalars, dtype=torch.uint8,
+                                  device=device)
+        self.host = torch.empty(at + 4 * n_scalars, dtype=torch.uint8,
+                                pin_memory=True)
+
+        def views(buf):
+            return [buf[o:o + math.prod(shape) * dtype.itemsize].view(
+                dtype).view(shape) for o, (shape, dtype) in zip(offsets,
+                                                                specs)]
+        self.tensors = views(self.static)
+        self._host_tensors = views(self.host)
+        self.scalars = self.static[at:].view(torch.float32).unbind()
+        self._host_scalars = self.host[at:].numpy().view(np.float32)
+        self._copied = torch.cuda.Event()     # after the last copy out
+
+    def stage(self, values, scalars):
+        """Write one call's values (numpy arrays or tensors of the specs'
+        shapes) and scalars; the host buffer is rewritten only once the
+        previous copy out of it has landed."""
+        self._copied.synchronize()     # returns at once before a record
+        on_device = []
+        for value, view, host in zip(values, self.tensors,
+                                     self._host_tensors):
+            if isinstance(value, torch.Tensor) and value.is_cuda:
+                on_device.append((view, value))
+            else:
+                host.copy_(torch.as_tensor(value))
+        self._host_scalars[:] = scalars
+        self.static.copy_(self.host, non_blocking=True)
+        self._copied.record()
+        for view, value in on_device:
+            view.copy_(value, non_blocking=True)

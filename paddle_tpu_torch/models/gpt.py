@@ -15,10 +15,8 @@ The LM head is tied to the word embedding.
 """
 from __future__ import annotations
 
-import contextlib
 import math
 import time
-import warnings
 from dataclasses import dataclass
 
 import numpy as np
@@ -29,7 +27,9 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from ..device import resolve_device
-from ..framework.graphs import add_counts, counted, no_gc, pool_bytes
+from ..framework.graphs import (StagedInputs, add_counts, capturing_on,
+                               counted, eager_step, no_gc, pool_bytes,
+                               sync_is_error)
 from ..framework.random import make_generator
 from ..kernels._build import MAX_HEAD_DIM
 from ..kernels.flash_attention import flash_attention_bshd
@@ -444,75 +444,9 @@ def _as_dtype(name):
     return None if name is None else getattr(torch, str(name))
 
 
-# set only inside _eager_step()
-_EAGER_ON_CUDA = False
-
-
-@contextlib.contextmanager
-def _eager_step():
-    """Every ``GPTHybridTrainStep`` call inside runs eagerly on CUDA too:
-    the yardstick the captured step is held against by ``chip_smoke.py``
-    and the card tests. No call of the program enters it."""
-    global _EAGER_ON_CUDA
-    was, _EAGER_ON_CUDA = _EAGER_ON_CUDA, True
-    try:
-        yield
-    finally:
-        _EAGER_ON_CUDA = was
-
-
-@contextlib.contextmanager
-def _sync_is_error():
-    """A CUDA call that waits for the device raises inside: it would fail
-    a capture, and here it fails with the op's name."""
-    was = torch.cuda.get_sync_debug_mode()
-    with warnings.catch_warnings():     # "a prototype feature"
-        warnings.simplefilter("ignore", UserWarning)
-        torch.cuda.set_sync_debug_mode("error")
-    try:
-        yield
-    finally:
-        torch.cuda.set_sync_debug_mode(was)
-
-
-class _StagedInputs:
-    """One batch shape's static inputs in one device buffer: ids and
-    labels (int64 ``[B, S]``), then ``lr`` and ``t`` (f32). :meth:`stage`
-    writes a call's values into a pinned host buffer of the same layout
-    and moves it with one non-blocking copy (as the serving engines'
-    ``StepGraph.stage`` does); ids or labels given as CUDA tensors are
-    copied in on the device after it."""
-
-    def __init__(self, B, S, device):
-        n = B * S
-        self.static = torch.empty(16 * n + 8, dtype=torch.uint8,
-                                  device=device)
-        self.host = torch.empty(16 * n + 8, dtype=torch.uint8,
-                                pin_memory=True)
-        ints = self.static[:16 * n].view(torch.int64).view(2, B, S)
-        self.ids, self.labels = ints[0], ints[1]
-        self.lr, self.t = self.static[16 * n:].view(torch.float32).unbind()
-        host = self.host.numpy()
-        self._ints = host[:16 * n].view(np.int64).reshape(2, B, S)
-        self._scalars = host[16 * n:].view(np.float32)
-        self._copied = torch.cuda.Event()     # after the last copy out
-
-    def stage(self, input_ids, labels, lr, t):
-        """Write one step's inputs; the host buffer is rewritten only once
-        the previous copy out of it has landed."""
-        self._copied.synchronize()     # returns at once before a record
-        on_device = []
-        for i, (arr, view) in enumerate(((input_ids, self.ids),
-                                         (labels, self.labels))):
-            if isinstance(arr, torch.Tensor) and arr.is_cuda:
-                on_device.append((view, arr))
-            else:
-                self._ints[i] = np.asarray(arr)
-        self._scalars[:] = (lr, t)
-        self.static.copy_(self.host, non_blocking=True)
-        self._copied.record()
-        for view, arr in on_device:
-            view.copy_(arr, non_blocking=True)
+# the training steps' eager switch (framework.graphs.eager_step): the
+# yardstick chip_smoke.py and the card tests hold the captured step against
+_eager_step = eager_step
 
 
 class _TrainGraph:
@@ -785,7 +719,7 @@ class GPTHybridTrainStep:
                 lr_src.step()
         else:
             lr = lr_src
-        if self.params["wte"].device.type == "cuda" and not _EAGER_ON_CUDA:
+        if capturing_on(self.params["wte"].device):
             return self._captured(input_ids, labels, lr, (B, S))
         ids, labs = self._inputs(input_ids, labels)
         return self._step(ids, labs, *self._scalars(lr, self._t))
@@ -794,7 +728,7 @@ class GPTHybridTrainStep:
         graph = self._graphs.get(key)
         if graph is None:
             return self._capture(input_ids, labels, lr, key)
-        graph.inputs.stage(input_ids, labels, lr, self._t)
+        graph.inputs.stage((input_ids, labels), (lr, self._t))
         graph.graph.replay()
         add_counts(graph.counts)
         return graph.loss.clone()
@@ -806,13 +740,13 @@ class GPTHybridTrainStep:
         capture records the same work and runs none of it, so the state
         moves by one step. Returns the step's loss."""
         dev = self.params["wte"].device
-        inputs = _StagedInputs(*key, dev)
-        inputs.stage(input_ids, labels, lr, self._t)
-        args = (inputs.ids, inputs.labels, inputs.lr, inputs.t)
+        inputs = StagedInputs([(key, torch.int64)] * 2, 2, dev)
+        inputs.stage((input_ids, labels), (lr, self._t))
+        args = (*inputs.tensors, *inputs.scalars)
         stream = torch.cuda.current_stream(dev)
         side = torch.cuda.Stream(dev)
         side.wait_stream(stream)
-        with torch.cuda.stream(side), _sync_is_error():
+        with torch.cuda.stream(side), sync_is_error():
             loss = self._step(*args)
         stream.wait_stream(side)
         loss.record_stream(stream)

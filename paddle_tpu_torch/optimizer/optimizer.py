@@ -10,6 +10,17 @@ each parameter in turn under ``torch.no_grad`` and stored in place; Adam
 keeps its moments and beta powers in f32 for bf16/f16 parameters, as the
 JAX one does.
 
+One update, two callers. :meth:`Optimizer._apply` updates given
+(parameter, gradient) pairs with the learning rate as a 0-d f32 tensor on
+the parameters' device: the counterpart of the JAX ``_jit_apply``, which
+the compiled training steps run with a traced f32 ``lr``. ``step()`` runs
+it with ``get_lr()`` put on the device; a captured training step
+(:class:`paddle_tpu_torch.distributed.fleet.ParallelTrainStep`) records
+it, reading lr from device memory on every replay. Every product of lr
+(``optimize_attr["learning_rate"]``, ``lr_ratio``, AdamW's ``1 - lr *
+coeff``) is taken on the device in f32, as under the JAX step's jit.
+:meth:`Optimizer._init_state` makes the accumulators ahead of a capture.
+
 Parameter names. ``parameters`` may be a module, ``(name, tensor)`` pairs
 (``module.named_parameters()``) or bare tensors. The names are the
 qualified names of ``named_parameters()``; bare tensors take their index
@@ -66,6 +77,7 @@ class Optimizer:
         self._accumulators: dict[str, dict[int, torch.Tensor]] = {}
         self._pending_state = None
         self._global_step = 0
+        self._lr_products = {}      # within one _apply: see _scaled_lr
 
     # -- lr -----------------------------------------------------------------
     def get_lr(self) -> float:
@@ -75,6 +87,22 @@ class Optimizer:
 
     def set_lr(self, value):
         self._learning_rate = float(value)
+
+    def _lr_tensor(self, device):
+        """``get_lr()`` as a 0-d f32 tensor on ``device``, made by a fill
+        kernel (nothing waits on a copy from the host)."""
+        return torch.full((), self.get_lr(), dtype=torch.float32,
+                          device=device)
+
+    def _scaled_lr(self, lr, factor):
+        """``lr * factor`` on the device, one product per distinct factor
+        within an update (``lr`` is a tensor that lives through it)."""
+        if factor == 1.0:
+            return lr
+        key = (id(lr), factor)
+        if key not in self._lr_products:
+            self._lr_products[key] = lr * factor
+        return self._lr_products[key]
 
     # -- state --------------------------------------------------------------
     def _name(self, p):
@@ -135,6 +163,17 @@ class Optimizer:
         params_grads = self._collect_params_grads()
         if not params_grads:
             return
+        self._global_step += 1
+        self._apply(params_grads,
+                    self._lr_tensor(params_grads[0][0].device))
+
+    @torch.no_grad()
+    def _apply(self, params_grads, lr):
+        """One update of ``params_grads``, in place: each parameter's
+        regularizer (else the optimizer's), then ``grad_clip`` over all of
+        them, then each parameter's update at ``lr`` times its
+        ``optimize_attr["learning_rate"]``. ``lr`` is a 0-d f32 tensor on
+        the parameters' device. Accumulators are made on first use."""
         reg = []
         for p, g in params_grads:    # a parameter's regularizer wins
             r = getattr(p, "regularizer", None)
@@ -148,11 +187,30 @@ class Optimizer:
         params_grads = reg
         if self._grad_clip is not None:
             params_grads = self._grad_clip(params_grads)
-        self._global_step += 1
-        for p, g in params_grads:
-            lr = self.get_lr() * getattr(p, "optimize_attr", {}).get(
-                "learning_rate", 1.0)
-            self._update_param(p, g, lr)
+        try:
+            for p, g in params_grads:
+                mult = getattr(p, "optimize_attr", {}).get("learning_rate",
+                                                           1.0)
+                self._update_param(p, g, self._scaled_lr(lr, mult))
+        finally:
+            self._lr_products = {}
+
+    def _state(self, p):
+        """``p``'s accumulators, made where missing (none here)."""
+        return ()
+
+    @torch.no_grad()
+    def _init_state(self, params):
+        """Make the accumulators of ``params`` now, so that a captured
+        update finds them in place."""
+        for p in params:
+            self._state(p)
+
+    def _state_tensors(self, params):
+        """Every accumulator of ``params`` that exists, in a fixed order."""
+        ids = [id(p) for p in params]
+        return [d[i] for _, d in sorted(self._accumulators.items())
+                for i in ids if i in d]
 
     def _update_param(self, p, g, lr):
         raise NotImplementedError
@@ -194,8 +252,11 @@ class Momentum(Optimizer):
         self._momentum = momentum
         self._use_nesterov = use_nesterov
 
+    def _state(self, p):
+        return self._acc("velocity", p, lambda: torch.zeros_like(p))
+
     def _update_param(self, p, g, lr):
-        v = self._acc("velocity", p, lambda: torch.zeros_like(p))
+        v = self._state(p)
         v.copy_(self._momentum * v + g)
         if self._use_nesterov:
             p.copy_(p - lr * (g + self._momentum * v))
@@ -212,16 +273,18 @@ class Adam(Optimizer):
                          name)
         self._beta1, self._beta2, self._epsilon = beta1, beta2, epsilon
 
-    def _update_param(self, p, g, lr):
+    def _state(self, p):
         dt = torch.float32 if p.dtype in (torch.float16, torch.bfloat16) \
             else p.dtype
-        g = g.to(dt)
         zeros = lambda: torch.zeros(p.shape, dtype=dt, device=p.device)  # noqa: E731
         ones = lambda: torch.ones((), dtype=dt, device=p.device)  # noqa: E731
-        m = self._acc("moment1", p, zeros)
-        v = self._acc("moment2", p, zeros)
-        b1p = self._acc("beta1_pow", p, ones)
-        b2p = self._acc("beta2_pow", p, ones)
+        return tuple(self._acc(name, p, init) for name, init in (
+            ("moment1", zeros), ("moment2", zeros), ("beta1_pow", ones),
+            ("beta2_pow", ones)))
+
+    def _update_param(self, p, g, lr):
+        m, v, b1p, b2p = self._state(p)
+        g = g.to(m.dtype)
         b1p.mul_(self._beta1)
         b2p.mul_(self._beta2)
         m.copy_(self._beta1 * m + (1 - self._beta1) * g)
@@ -254,11 +317,14 @@ class AdamW(Adam):
 
     def _update_param(self, p, g, lr):
         if self._lr_ratio is not None:
-            lr = lr * self._lr_ratio(p)
+            lr = self._scaled_lr(lr, self._lr_ratio(p))
         decay = self._coeff
         if self._apply_decay_param_fun is not None and \
                 not self._apply_decay_param_fun(self._name(p)):
             decay = 0.0
         if decay:
-            p.mul_(1.0 - lr * decay)
+            key = ("keep", id(lr), decay)
+            if key not in self._lr_products:
+                self._lr_products[key] = 1.0 - lr * decay
+            p.mul_(self._lr_products[key])
         super()._update_param(p, g, lr)

@@ -6,6 +6,7 @@ has only PyTorch; there, skip the repository's conftest (which sets JAX up):
 
     python -m pytest tests/test_torch_gpu.py -m gpu --noconftest -q
 """
+import contextlib
 import re
 
 import numpy as np
@@ -1343,3 +1344,275 @@ def test_ernie_moe_training_step_matches_cpu(fused):
     for name, p in want[2].items():
         torch.testing.assert_close(got[2][name], p, rtol=0, atol=2e-5,
                                    msg=name)
+
+
+# --------------------------------------------- ParallelTrainStep, captured
+#
+# The cases run in a fresh interpreter (a graph-capturing card test in the
+# test process left torch.profiler recording no kernels for the route
+# checks above; tests/test_torch_aot.py does the same), all at once through
+# the module fixture ``train_step_card``.
+
+def _ts_ernie(fused=False, routing=False, seed=0):
+    """The 2-layer tiny ERNIE-MoE on the card, in training; every gate's
+    random routing off unless ``routing``."""
+    from paddle_tpu_torch.incubate.distributed.models.moe import GShardGate
+    cfg = ternie.ernie_moe_tiny_config(num_hidden_layers=2,
+                                       fused_dispatch=fused)
+    model = ternie.ErnieMoeForPretraining(
+        ternie.ErnieMoeModel(cfg, seed=seed, device="cuda")).train()
+    for m in model.modules():
+        if isinstance(m, GShardGate):
+            m.random_routing = routing
+    return model
+
+
+def _ts_loss(dtype):
+    from paddle_tpu_torch.amp import auto_cast
+
+    def loss(m, ids, labels):
+        with auto_cast(enable=dtype == "bfloat16", dtype="bfloat16"):
+            return m.forward_with_mlm_loss(ids, labels)
+    return loss
+
+
+def _ts_counts():
+    return [tfa.launches, tfa.dq_launches, tfa.dkv_launches,
+            tmd.dispatch_launches, tmd.combine_launches]
+
+
+def _ts_run(captured, dtype="float32", fused=False, routing=False, steps=3):
+    """``steps`` steps of the tiny ERNIE-MoE through ParallelTrainStep from
+    seed 0, captured (the default on the card) or inside the eager switch:
+    the losses, the parameters after the last step, each call's launches
+    and the step."""
+    from paddle_tpu_torch.distributed.fleet import train_step
+    from paddle_tpu_torch.optimizer import AdamW
+    model = _ts_ernie(fused, routing)
+    step = train_step.ParallelTrainStep(
+        model, AdamW(1e-3, parameters=model.named_parameters()),
+        _ts_loss(dtype))
+    rng = np.random.default_rng(0)
+    ids, labels = (rng.integers(0, model.config.vocab_size, (2, 64))
+                   for _ in range(2))
+    losses, counts = [], []
+    with contextlib.nullcontext() if captured else train_step._eager_step():
+        for _ in range(steps):
+            c0 = _ts_counts()
+            losses.append(step(ids, labels).item())
+            counts.append([b - a for a, b in zip(c0, _ts_counts())])
+    params = {n: p.detach().cpu() for n, p in model.named_parameters()}
+    return losses, params, counts, step
+
+
+def _ts_scaler_case():
+    """A replay that overflows: ``lin(x).sum()`` with x all ones makes
+    every gradient 3, finite at a scale of 2^126 and inf at 2^127. The
+    first call (eager, then the capture) and the third are good; before
+    the second the scale is set to 2^127."""
+    from paddle_tpu_torch.amp import GradScaler
+    from paddle_tpu_torch.distributed import ParallelTrainStep
+    from paddle_tpu_torch.nn import Linear
+    from paddle_tpu_torch.optimizer import AdamW
+    lin = Linear(6, 4, generator=torch.Generator("cuda").manual_seed(0))
+    opt = AdamW(1e-3, parameters=lin.named_parameters())
+    scaler = GradScaler(init_loss_scaling=2.0 ** 126,
+                        decr_every_n_nan_or_inf=1)
+    step = ParallelTrainStep(lin, opt, lambda m, x: m(x).sum(),
+                             scaler=scaler)
+    x = np.ones((3, 6), np.float32)
+    state = lambda: [t.detach().clone() for t in  # noqa: E731
+                     list(lin.parameters()) + opt._state_tensors(
+                         list(lin.parameters()))]
+    out = {}
+    step(x)
+    before = state()
+    scaler.set_init_loss_scaling(2.0 ** 127)
+    step(x)
+    out["overflow"] = dict(
+        found_inf=step.last_found_inf, scale=scaler._scale,
+        kept=all(torch.equal(a, b) for a, b in zip(before, state())))
+    step(x)
+    out["next"] = dict(found_inf=step.last_found_inf, scale=scaler._scale,
+                       moved=not torch.equal(before[0], lin.weight))
+    out["graphs"] = len(step.captured_signatures)
+    return out
+
+
+class _Draws(torch.nn.Module):
+    """A model that draws from a generator of its own in its loss and
+    keeps the draw, so a test can read what each replay drew."""
+
+    def __init__(self):
+        super().__init__()
+        self.w = torch.nn.Parameter(torch.ones(4, device="cuda"))
+        self.rng = torch.Generator("cuda").manual_seed(7)
+        self.drawn = torch.zeros(4, device="cuda")
+
+    def loss(self, x):
+        u = torch.rand(4, generator=self.rng, device="cuda")
+        self.drawn.copy_(u)
+        return (self.w * u * x).sum()
+
+
+def _ts_draws_case():
+    """The generators a module holds are registered with the graph: each
+    replay draws new numbers, the ones an eager step would draw next."""
+    from paddle_tpu_torch.distributed.fleet import train_step
+    from paddle_tpu_torch.optimizer import SGD, AdamW
+    out = {}
+    for label in ("captured", "eager"):
+        m = _Draws()
+        step = train_step.ParallelTrainStep(
+            m, SGD(0.1, parameters=m.named_parameters()),
+            lambda m, x: m.loss(x))
+        x = np.ones(4, np.float32)
+        draws = []
+        with train_step._eager_step() if label == "eager" \
+                else contextlib.nullcontext():
+            for _ in range(3):
+                step(x)
+                draws.append(m.drawn.cpu().tolist())
+        out[label] = draws
+    # the MoE gates' generators are found and registered
+    model = _ts_ernie(routing=True)
+    gens = train_step._generators(model)
+    out["gate_generators"] = len(gens)
+    step = train_step.ParallelTrainStep(
+        model, AdamW(1e-3, parameters=model.named_parameters()),
+        _ts_loss("float32"))
+    rng = np.random.default_rng(0)
+    ids, labels = (rng.integers(0, model.config.vocab_size, (2, 64))
+                   for _ in range(2))
+    states = []
+    for _ in range(3):
+        step(ids, labels)
+        states.append([g.get_state().tolist() for g in gens])
+    out["gate_states_move"] = states[0] != states[1] != states[2]
+    return out
+
+
+def _ts_failing_case():
+    """A host sync inside the loss (a value read to the host): the first
+    call raises, in the eager run before the capture, and keeps no
+    graph."""
+    from paddle_tpu_torch.distributed import ParallelTrainStep
+    from paddle_tpu_torch.optimizer import SGD
+    m = _Draws()
+    step = ParallelTrainStep(m, SGD(0.1, parameters=m.named_parameters()),
+                             lambda m, x: m.loss(x) * float(m.w.sum()))
+    try:
+        step(np.ones(4, np.float32))
+    except RuntimeError as e:
+        raised = str(e).splitlines()[0][:200]
+    else:
+        raised = None
+    return dict(raised=raised, graphs=len(step.captured_signatures))
+
+
+def _train_step_cases():
+    """Every card case of ParallelTrainStep, as JSON-ready values."""
+    out = {}
+    for dtype, fused in (("float32", False), ("bfloat16", False),
+                         ("bfloat16", True)):
+        cap = _ts_run(True, dtype, fused)
+        eag = _ts_run(False, dtype, fused)
+        out[f"{dtype}_{'fused' if fused else 'gather'}"] = dict(
+            losses=cap[0], eager_losses=eag[0],
+            param_diff=max((cap[1][k].float() - v.float()).abs().max().item()
+                           for k, v in eag[1].items()),
+            counts=cap[2], eager_counts=eag[2],
+            graphs=len(cap[3].captured_signatures),
+            pool=cap[3].graph_pool_bytes(), capture_s=cap[3].capture_s)
+    cap = _ts_run(True, routing=True, steps=4)
+    eag = _ts_run(False, routing=True, steps=4)
+    out["routing"] = dict(losses=cap[0], eager_losses=eag[0])
+    out["scaler"] = _ts_scaler_case()
+    out["draws"] = _ts_draws_case()
+    out["failing"] = _ts_failing_case()
+    return out
+
+
+_CARD_RUNNER = """
+import importlib.util, json, sys
+spec = importlib.util.spec_from_file_location("gpu_cases", sys.argv[1])
+mod = importlib.util.module_from_spec(spec)
+spec.loader.exec_module(mod)
+mod._cuda()
+print(json.dumps(getattr(mod, sys.argv[2])()))
+"""
+
+
+def _in_subprocess(name):
+    import json
+    import subprocess
+    import sys
+    from pathlib import Path
+    out = subprocess.run([sys.executable, "-c", _CARD_RUNNER, __file__, name],
+                         cwd=Path(__file__).resolve().parents[1],
+                         capture_output=True, text=True, timeout=900)
+    assert out.returncode == 0, out.stderr[-4000:]
+    return json.loads(out.stdout.splitlines()[-1])
+
+
+@pytest.fixture(scope="module")
+def train_step_card():
+    _cuda()
+    return _in_subprocess("_train_step_cases")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["float32_gather", "bfloat16_gather",
+                                  "bfloat16_fused"])
+def test_train_step_captured_equals_eager(train_step_card, case):
+    """The tiny ERNIE-MoE through ParallelTrainStep, 3 steps, captured
+    (the first call runs eagerly, then captures) against the eager switch
+    from one seed, random routing off: every loss and parameter bit for
+    bit, the same launches each call (flash L/L/L; with the fused MoE
+    path one dispatch and one combine a MoE layer), one graph."""
+    res = train_step_card[case]
+    assert res["losses"] == res["eager_losses"]
+    assert res["param_diff"] == 0.0
+    assert res["losses"][-1] < res["losses"][0]
+    want = [2, 2, 2] + [1, 1] if case.endswith("fused") else [2, 2, 2, 0, 0]
+    assert res["counts"] == [want] * 3 == res["eager_counts"]
+    assert res["graphs"] == 1 and res["pool"] != 0 and res["capture_s"] > 0
+
+
+@pytest.mark.gpu
+def test_train_step_replays_draw_new_numbers(train_step_card):
+    """A module's own generator is registered with the graph: each replay
+    draws new numbers, the ones the eager step draws; the MoE gates'
+    generators (one a MoE layer) are found and move with every replay,
+    and with random routing on the captured losses are finite and
+    fall."""
+    res = train_step_card["draws"]
+    cap, eag = res["captured"], res["eager"]
+    assert cap[0] != cap[1] != cap[2] and cap[0] != cap[2]
+    assert cap == eag
+    assert res["gate_generators"] == 1 and res["gate_states_move"]
+    losses = train_step_card["routing"]["losses"]
+    assert all(np.isfinite(losses)) and losses[-1] < losses[0]
+
+
+@pytest.mark.gpu
+def test_train_step_scaler_skips_under_capture(train_step_card):
+    """An overflowing replay leaves every parameter and accumulator as it
+    was, sets ``last_found_inf`` and halves the scale; the next replay
+    updates."""
+    res = train_step_card["scaler"]
+    assert res["overflow"] == dict(found_inf=True, scale=2.0 ** 126,
+                                   kept=True)
+    assert res["next"] == dict(found_inf=False, scale=2.0 ** 126,
+                               moved=True)
+    assert res["graphs"] == 1
+
+
+@pytest.mark.gpu
+def test_train_step_sync_in_the_step_raises(train_step_card):
+    """A loss that waits on the host fails the first call (its eager run
+    raises on the sync) and keeps no graph; the ERNIE-MoE steps above
+    captured, so their eager first calls waited on nothing."""
+    res = train_step_card["failing"]
+    assert res["raised"] is not None and res["graphs"] == 0
+    assert train_step_card["bfloat16_gather"]["graphs"] == 1

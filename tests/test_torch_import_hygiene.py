@@ -22,12 +22,16 @@ _PROBE = textwrap.dedent("""
                                               "paddle_tpu_torch.")]
     for name in names:
         importlib.import_module(name)
-    # the training slice's modules are among them
+    # the training slices' modules are among them
     assert {"paddle_tpu_torch.amp.auto_cast",
+            "paddle_tpu_torch.amp.grad_scaler",
             "paddle_tpu_torch.optimizer.optimizer",
             "paddle_tpu_torch.nn.clip",
             "paddle_tpu_torch.nn.functional.attention",
             "paddle_tpu_torch.incubate.distributed.models.moe.grad_clip",
+            "paddle_tpu_torch.distributed",
+            "paddle_tpu_torch.distributed.fleet",
+            "paddle_tpu_torch.distributed.fleet.train_step",
             } <= set(names), names
     import chip_smoke
     bad = sorted(m for m in sys.modules
@@ -79,4 +83,4 @@ def test_port_imports_no_jax_and_never_falls_back_to_cpu():
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr[-3000:]
     n = int(out.stdout.split("MODULES")[1])
-    assert n >= 42
+    assert n >= 46
