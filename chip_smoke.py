@@ -2,7 +2,10 @@
 
     python3 chip_smoke.py [--json-out PATH] [--parent ROOT]
 
-Thirteen phases, one result per line:
+Fifteen phases, one result per line, in this order: build, tensor_api,
+flash, flash_bwd, paged, paged_prefill, int8, moe_dispatch, serving,
+serving_prefix, serving_int8, serving_moe, checkpoint, training,
+training_moe:
 
 1. device and build — the card's name and power limit, and the build of
    every CUDA kernel from ``paddle_tpu_torch/csrc`` with nvcc for sm_90a;
@@ -153,7 +156,25 @@ Thirteen phases, one result per line:
    over 5 steps with random routing off, on the gather path and with
    ``fused_dispatch=True`` (6 dispatch and 6 combine launches a replay);
    a ``GradScaler`` whose overflowing replay must keep every parameter
-   and accumulator, set ``last_found_inf`` and halve the scale.
+   and accumulator, set ``last_found_inf`` and halve the scale;
+10. ``tensor_api`` — the tensor facade (``import paddle_tpu_torch as
+    paddle``) on the card against the same ops on the CPU, at the CPU
+    tests' tolerances, each check's error printed: ``to_tensor`` with no
+    place lands on the card; elementwise ops, a matmul chain through a
+    ``PyLayer`` with ``backward``, a ``paddle.grad(create_graph=True)``
+    second derivative, topk, cumsum, gather, argmax, and a matmul under
+    ``auto_cast(bf16)``; ``FLAGS_check_nan_inf`` raises on a planted NaN;
+11. ``checkpoint`` — the engines' warm start: a GPT-345M
+    ``GPTForPretraining`` state (f32, the ``serving`` phase's seed) saved
+    with ``paddle.save`` and served through ``ServingEngine.from_checkpoint``
+    (captured) on the ``serving`` prompts, also from bare ``GPTModel``
+    keys and with ``quantize="int8"``, and ``MoEServingEngine.from_checkpoint``
+    at ``ernie_moe_base_config(capacity_factor=100.0)`` on the
+    ``serving_moe`` prompts: every greedy token (16 a request) equal to an
+    engine built from the same model in memory, launches counted exactly;
+    the save and load times, the checkpoint bytes, ``from_checkpoint``'s
+    time and the time to the first token after it printed beside the
+    card's name and power limit (int8 reads the full-key file again).
 
 Exits non-zero, without the final line, when CUDA is unavailable or any
 phase fails. The last line is ``{"ok": true, "device": {...}}``; the line
@@ -2019,7 +2040,7 @@ def _gpt_launches(eng, steps, n):
 
 
 def _serve_counted(torch, np, eng, cfg, label, prompts=None,
-                   launches=_gpt_launches):
+                   launches=_gpt_launches, max_new=MAX_NEW):
     """One serving run of the eight ragged prompts (or ``prompts``), with
     the kernels' launch counts set to 0 just before it and read just
     after, and held exactly to ``launches(eng, decode steps, prompts)``
@@ -2030,7 +2051,7 @@ def _serve_counted(torch, np, eng, cfg, label, prompts=None,
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     _zero_counts()
-    reqs, wall, _ = _run_sched(torch, sched, prompts, MAX_NEW)
+    reqs, wall, _ = _run_sched(torch, sched, prompts, max_new)
     counts = _counts()
     _check_counts(label, counts, launches(eng, sched.steps, len(prompts)))
     if eng.pool.pages_in_use:
@@ -2751,6 +2772,250 @@ def phase_serving_moe(torch, np, res):
     _log(f"serving_moe f32: {checked} generated tokens equal the eager "
          f"model's argmax (near ties, gap < 1e-3: {near})")
     res["serving_moe"] = out
+
+
+# ---------------------------------------------------------------- tensor_api
+
+# the facade on the card against the same ops on the CPU, at the CPU
+# tests' tolerances: f32 rtol 1e-5 / atol 1e-6 elementwise, 1e-5 / 1e-5
+# for matmul, reductions and gradients; bf16 (auto_cast) 1e-2; integer
+# results exactly
+FACADE_TOL = {"elementwise": (1e-5, 1e-6), "reduction": (1e-5, 1e-5),
+              "bfloat16": (1e-2, 1e-2), "exact": (0.0, 0.0)}
+
+
+def _facade_checks(paddle, np):
+    """One pass of the facade checks on the current place: {name: (kind,
+    numpy result)}."""
+    from paddle_tpu_torch.amp import auto_cast
+    from paddle_tpu_torch.autograd import PyLayer
+
+    class Cube(PyLayer):
+        @staticmethod
+        def forward(ctx, x):
+            ctx.save_for_backward(x)
+            return x * x * x
+
+        @staticmethod
+        def backward(ctx, g):
+            (x,) = ctx.saved_tensor()
+            return g * 3.0 * x * x
+
+    rng = np.random.default_rng(5)
+    x_np = rng.standard_normal((64, 128)).astype(np.float32)
+    w_np = (rng.standard_normal((128, 32)) * 0.1).astype(np.float32)
+    out = {}
+    x = paddle.to_tensor(x_np, stop_gradient=False)
+    w = paddle.to_tensor(w_np, stop_gradient=False)
+    e = paddle.exp(paddle.tanh(x) * 0.5) + paddle.sqrt(paddle.abs(x) + 1.0)
+    out["elementwise"] = ("elementwise", e)
+    h = paddle.tanh(paddle.matmul(x, w))
+    loss = paddle.mean(paddle.square(h[:, :16]) + Cube.apply(h[:, 16:]))
+    loss.backward()
+    out.update(loss=("reduction", loss), grad_x=("reduction", x.grad),
+               grad_w=("reduction", w.grad))
+    (g1,) = paddle.grad(paddle.sum(paddle.sin(x) * x), [x],
+                        create_graph=True)
+    (g2,) = paddle.grad(paddle.sum(g1 * g1), [x])
+    out.update(grad_create_graph=("reduction", g1),
+               second_derivative=("reduction", g2))
+    vals, idx = paddle.topk(x, 4, axis=1)
+    out.update(topk_values=("elementwise", vals), topk_indices=("exact", idx),
+               cumsum=("reduction", paddle.cumsum(x, axis=1)),
+               gather=("elementwise", paddle.gather(x, paddle.to_tensor(
+                   np.array([3, 0, 63])), axis=0)),
+               argmax=("exact", paddle.argmax(x, axis=0)))
+    with auto_cast(dtype="bfloat16"):
+        m = paddle.matmul(x, w)
+    if m.dtype != paddle.bfloat16:
+        raise AssertionError(f"auto_cast matmul gave {m.dtype}")
+    out["auto_cast_matmul"] = ("bfloat16", m.astype("float32"))
+    return {k: (kind, t.numpy()) for k, (kind, t) in out.items()}
+
+
+def phase_tensor_api(torch, np, res):
+    """The tensor facade on the card (``import paddle_tpu_torch as
+    paddle``) against the same ops on the CPU."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.framework import place as tplace
+    prev = tplace._current_place
+    try:
+        tplace._current_place = None            # the default: the card
+        t = paddle.to_tensor([1.0, 2.0])
+        if t.place != paddle.CUDAPlace(0) or not t._value.is_cuda:
+            raise AssertionError(f"to_tensor landed on {t.place}")
+        _log(f"tensor_api: to_tensor with no place -> {t.place} "
+             f"({paddle.get_device()})")
+        t0 = time.perf_counter()
+        card = _facade_checks(paddle, np)
+        torch.cuda.synchronize()
+        card_s = time.perf_counter() - t0
+        paddle.set_flags({"FLAGS_check_nan_inf": True})
+        try:
+            paddle.log(paddle.to_tensor([1.0, -1.0]))
+        except FloatingPointError as e:
+            nan_msg = str(e)
+        else:
+            raise AssertionError("FLAGS_check_nan_inf did not raise")
+        finally:
+            paddle.set_flags({"FLAGS_check_nan_inf": False})
+        _log(f"tensor_api: FLAGS_check_nan_inf raised: {nan_msg}")
+        paddle.set_device("cpu")
+        cpu = _facade_checks(paddle, np)
+    finally:
+        tplace._current_place = prev
+    errs = {}
+    for name, (kind, got) in card.items():
+        want = cpu[name][1]
+        rtol, atol = FACADE_TOL[kind]
+        err = float(np.max(np.abs(got.astype(np.float64)
+                                  - want.astype(np.float64))))
+        errs[name] = err
+        ok = (np.array_equal(got, want) if kind == "exact" else
+              np.allclose(got, want, rtol=rtol, atol=atol))
+        _log(f"tensor_api {name}: card vs CPU max |err| {err:.3e} "
+             f"({kind}: rtol {rtol}, atol {atol}) {'ok' if ok else 'FAIL'}")
+        if not ok or got.dtype != want.dtype:
+            raise AssertionError(f"tensor_api {name}: card and CPU differ")
+    res["tensor_api"] = dict(max_abs_err=errs, card_pass_s=card_s,
+                             nan_check=nan_msg)
+
+
+# ---------------------------------------------------------------- checkpoint
+
+CKPT_MAX_NEW = 16     # new tokens a request in the checkpoint phase
+
+
+def _ckpt_serve(torch, np, eng, cfg, label, prompts, launches):
+    """A counted scheduler run of ``prompts`` (``CKPT_MAX_NEW`` new tokens
+    each); returns (tokens per request, launch counts)."""
+    e2e, reqs = _serve_counted(torch, np, eng, cfg, label, prompts=prompts,
+                               launches=launches, max_new=CKPT_MAX_NEW)
+    return [list(r.tokens) for r in reqs], e2e["launches"]
+
+
+def _first_token_ms(torch, np, eng, prompt):
+    """The first token of one request on a fresh engine: submit to the
+    sampled token on the host (ms)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tok = eng.prefill("first", prompt)
+    int(tok)
+    ms = (time.perf_counter() - t0) * 1e3
+    eng.release("first")
+    return ms
+
+
+def _ckpt_save(torch, tmp, label, obj, time_load=True):
+    """``paddle.save`` of ``obj`` under ``tmp``, timed, and (with
+    ``time_load``) one ``paddle.load`` of it, timed. Returns (path, dict
+    of the numbers)."""
+    import paddle_tpu_torch as paddle
+    path = os.path.join(tmp, f"{label}.pdparams")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    paddle.save(obj, path)
+    info = dict(save_s=time.perf_counter() - t0,
+                checkpoint_bytes=os.path.getsize(path))
+    if time_load:
+        t0 = time.perf_counter()
+        paddle.load(path, return_numpy=True)
+        info["load_s"] = time.perf_counter() - t0
+    return path, info
+
+
+def _ckpt_case(torch, np, res, label, path, saved, build, reference, cfg,
+               prompts, launches):
+    """An engine from the checkpoint at ``path`` (``build(path)``, the
+    engine's ``from_checkpoint``): its build time, the time of its first
+    token, and its greedy tokens on ``prompts`` held to ``reference``'s
+    (an engine built from the model in memory), launches counted."""
+    t0 = time.perf_counter()
+    eng = build(path)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    first_ms = _first_token_ms(torch, np, eng, prompts[0])
+    got, counts = _ckpt_serve(torch, np, eng, cfg, f"checkpoint {label}",
+                              prompts, launches)
+    capture_s = eng.compile_s
+    del eng
+    want, _ = _ckpt_serve(torch, np, reference, cfg,
+                          f"checkpoint {label} in memory", prompts, launches)
+    n = sum(len(t) for t in got)
+    if got != want:
+        bad = next(i for i, (a, b) in enumerate(zip(got, want)) if a != b)
+        raise AssertionError(f"checkpoint {label}: request {bad} tokens "
+                             f"{got[bad]} vs the in-memory engine's "
+                             f"{want[bad]}")
+    out = dict(saved, from_checkpoint_s=build_s, capture_s=capture_s,
+               first_token_ms=first_ms,
+               load_to_first_token_s=build_s + first_ms / 1e3,
+               tokens_equal=n, launches=counts)
+    io = ", ".join(f"{k[:-2]} {v:.2f} s" for k, v in saved.items()
+                   if k.endswith("_s"))
+    _log(f"checkpoint {label} [{res.get('nvidia_smi')}]: "
+         f"{io + ', ' if io else ''}"
+         + (f"{saved['checkpoint_bytes']} bytes, " if saved
+            else "the gpt_full file, ") +
+         f"from_checkpoint {build_s:.2f} s (capture {capture_s:.2f} s), "
+         f"first token {first_ms:.2f} ms after it; {n} greedy tokens equal "
+         f"the in-memory engine's; launches {counts}")
+    return out
+
+
+def phase_checkpoint(torch, np, res):
+    """GPT-345M and ERNIE-MoE base served from a ``paddle.save``d state
+    through the engines' ``from_checkpoint`` (f32, captured), against
+    engines built from the same models in memory."""
+    from paddle_tpu_torch.models.ernie import (ErnieMoeForPretraining,
+                                               ErnieMoeModel,
+                                               ernie_moe_base_config)
+    from paddle_tpu_torch.serving import MoEServingEngine, ServingEngine
+    out = {}
+    model, cfg = _model_345m(torch)
+    prompts = _prompts(cfg, np)
+    kw = dict(page_size=64, decode_buckets=(1, 2, 4, 8),
+              prefill_buckets=(256, 512, 1024), device="cuda")
+    with tempfile.TemporaryDirectory() as tmp:
+        full, saved = _ckpt_save(torch, tmp, "gpt_full", model.state_dict())
+        bare, saved_bare = _ckpt_save(torch, tmp, "gpt_bare",
+                                      model.gpt.state_dict(),
+                                      time_load=False)
+        ref = _engine(model)
+        out["gpt_full"] = _ckpt_case(
+            torch, np, res, "gpt_full", full, saved,
+            lambda p: ServingEngine.from_checkpoint(p, cfg, **kw), ref, cfg,
+            prompts, _gpt_launches)
+        out["gpt_bare"] = _ckpt_case(
+            torch, np, res, "gpt_bare", bare, saved_bare,
+            lambda p: ServingEngine.from_checkpoint(p, cfg, **kw), ref, cfg,
+            prompts, _gpt_launches)
+        del ref
+        os.unlink(bare)
+        ref = _engine(model, quantize="int8")
+        out["gpt_int8"] = _ckpt_case(     # from the gpt_full file
+            torch, np, res, "gpt_int8", full, {},
+            lambda p: ServingEngine.from_checkpoint(p, cfg, quantize="int8",
+                                                    **kw),
+            ref, cfg, prompts, _gpt_launches)
+        del ref, model
+        os.unlink(full)
+        _stamp("checkpoint gpt done")
+        mcfg = ernie_moe_base_config(capacity_factor=100.0)
+        moe = ErnieMoeForPretraining(ErnieMoeModel(mcfg, seed=0,
+                                                   device="cuda")).eval()
+        rng = np.random.default_rng(11)
+        mprompts = [rng.integers(0, mcfg.vocab_size, (n,)).astype(np.int32)
+                    for n in MOE_PROMPT_LENS]
+        mkw = dict(page_size=64, decode_buckets=(1, 2, 4, 8), device="cuda")
+        path, saved = _ckpt_save(torch, tmp, "moe", moe.state_dict())
+        ref = MoEServingEngine(moe, **mkw)
+        out["moe"] = _ckpt_case(
+            torch, np, res, "moe", path, saved,
+            lambda p: MoEServingEngine.from_checkpoint(p, mcfg, **mkw),
+            ref, mcfg, mprompts, _moe_launches)
+        del ref, moe
+    res["checkpoint"] = out
 
 
 def _profile_run(torch, fn):
@@ -3950,6 +4215,7 @@ def main(argv=None) -> int:
          f"{os.cpu_count()} cpus, {len(os.sched_getaffinity(0))} usable, "
          f"{torch.get_num_threads()} torch threads")
     phases = [("build", lambda: phase_build(res)),
+              ("tensor_api", lambda: phase_tensor_api(torch, np, res)),
               ("flash", lambda: phase_flash(torch, res)),
               ("flash_bwd", lambda: phase_flash_bwd(torch, res)),
               ("paged", lambda: phase_paged(torch, res)),
@@ -3961,6 +4227,7 @@ def main(argv=None) -> int:
               ("serving_prefix", lambda: phase_serving_prefix(torch, np, res)),
               ("serving_int8", lambda: phase_serving_int8(torch, np, res)),
               ("serving_moe", lambda: phase_serving_moe(torch, np, res)),
+              ("checkpoint", lambda: phase_checkpoint(torch, np, res)),
               ("training", lambda: phase_training(torch, np, res)),
               ("training_moe", lambda: phase_training_moe(torch, np, res))]
     for name, fn in phases:
@@ -4021,6 +4288,13 @@ def main(argv=None) -> int:
     for key in ("moe_dispatch", "moe_combine"):
         res[key]["launches_by_path"]["training_moe"] = \
             res["training_moe_graph_check"]["fused"]["replay_launches"][key]
+    # checkpoint: the counted runs of the engines from_checkpoint built
+    # (f32, captured), summed over the phase's GPT and MoE cases
+    for key in ("flash", "paged", "int8", "moe_dispatch", "moe_combine"):
+        n = sum(case["launches"][key]
+                for case in res["checkpoint"].values())
+        if n:
+            res[key]["launches_by_path"]["checkpoint"] = n
     print(json.dumps({"kernels": [
         {k: v for k, v in res[key].items() if k != "shapes"} for key in (
             "flash", "flash_bwd_dq", "flash_bwd_dkv", "paged",

@@ -9,7 +9,14 @@ is built (the CUDA kernels compile at their first launch, see
 :mod:`paddle_tpu_torch.kernels._build`), and no RNG state is seeded.
 
 Ported so far, GPT serving and training, ERNIE-MoE serving and
-pretraining (``ROADMAP.md`` lists the rest):
+pretraining, and paddle's tensor facade (``ROADMAP.md`` lists the rest):
+
+- :mod:`.framework` — ``Tensor``/``Parameter`` over ``torch.Tensor``,
+  ``to_tensor``, dtypes, places (``set_device``), autograd on torch's
+  (``backward``, ``grad``, ``no_grad``), ``seed``, the flags, and
+  ``save``/``load``; :mod:`.autograd` — ``PyLayer``;
+- :mod:`.ops` — the ``paddle.*`` ops and their Tensor methods, all at the
+  top level (``import paddle_tpu_torch as paddle``);
 
 - :mod:`.models.gpt` — the GPT model family as ``nn.Module``s and the
   training step (one CUDA graph per batch shape on the card);
@@ -28,8 +35,25 @@ pretraining (``ROADMAP.md`` lists the rest):
   ``ContinuousBatchingScheduler``.
 
 Entry points run on CUDA unless the caller passes ``device="cpu"``
-(:func:`.device.resolve_device`).
+(:func:`.device.resolve_device`); the facade runs on the current place,
+the card unless ``set_device("cpu")``.
 """
 from .device import resolve_device  # noqa: F401
 
 __version__ = "0.1.0"
+
+from .framework import (  # noqa: E402,F401
+    Tensor, to_tensor, no_grad, enable_grad, is_grad_enabled,
+    set_grad_enabled, grad, seed, get_rng_state, set_rng_state, set_flags,
+    get_flags, set_default_dtype, get_default_dtype, set_device, get_device,
+    device_count, is_compiled_with_cuda,
+    CPUPlace, TPUPlace, CUDAPlace, CUDAPinnedPlace,
+    bool_, uint8, int8, int16, int32, int64, float16, bfloat16, float32,
+    float64, complex64, complex128,
+)
+from .framework.tensor import Parameter  # noqa: E402,F401
+from .framework.dtype import DType as dtype  # noqa: E402,F401
+from .framework.dtype import bool_ as bool  # noqa: E402,F401
+from .framework.io import save, load, CheckpointCorruptError  # noqa: E402,F401
+from .ops import *  # noqa: E402,F401,F403  (the paddle.* op surface)
+from . import ops  # noqa: E402,F401

@@ -40,10 +40,15 @@ as the CPU always does. The step functions take their per-request scalars
 (true length, chunk offset and length) as device tensors, so a graph
 serves every request of its bucket.
 
+:meth:`ServingEngine.from_checkpoint` builds the engine from a
+``paddle.save``d GPT state dict (the port's or the JAX package's file,
+:mod:`paddle_tpu_torch.framework.io`), the warm start a fleet replica
+takes.
+
 The JAX engine reaches the chunk-prefill and int8 kernels through its
 auto-fusion rewrite, on by default; the port's step functions call them
-where the rewrite puts them. Disaggregated prefill, ``autofuse`` and
-``from_checkpoint`` are not ported and raise ``NotImplementedError``.
+where the rewrite puts them. Disaggregated prefill and ``autofuse`` are
+not ported and raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -384,10 +389,23 @@ class ServingEngine:
             self.compile_buckets()
 
     @classmethod
-    def from_checkpoint(cls, path, config, **kw):
-        raise NotImplementedError(
-            f"from_checkpoint needs framework/io, not ported yet "
-            f"({_MODES_ITEM})")
+    def from_checkpoint(cls, path, config: GPTConfig, **kw):
+        """Checkpoint → engine: ``path`` is a ``paddle.save``d GPT state
+        dict (``GPTForPretraining`` keys, or bare ``GPTModel`` keys, which
+        get the ``gpt.`` prefix), written by the port or by the JAX
+        package. The model is built on the engine's device (``kw``'s
+        ``device``, the card by default), loaded in f32 and handed with
+        ``kw`` (``quantize="int8"`` and the rest) to the constructor."""
+        from ..framework.io import load
+        from ..models.convert import gpt_state_dict_from_numpy
+        from ..models.gpt import GPTForPretraining, GPTModel
+        resolve_device(kw.get("device"))     # no card: raise before reading
+        state = load(path, return_numpy=True)
+        if not any(k.startswith("gpt.") for k in state):
+            state = {f"gpt.{k}": v for k, v in state.items()}
+        model = GPTForPretraining(GPTModel(config, device=kw.get("device")))
+        model.load_state_dict(gpt_state_dict_from_numpy(state), strict=True)
+        return cls(model, config, **kw)
 
     # -------------------------------------------------------------- info
     def weight_bytes(self) -> int:

@@ -30,13 +30,15 @@ the GPT engine's: on CUDA, by default, every decode bucket's step and
 every prefill bucket's is captured as a CUDA graph and replayed (the MoE
 dispatch in one launch at decode sizes and in three passes for prefills of
 more than 128 tokens, both inside the graphs).
-``from_checkpoint`` and ``autofuse`` are not ported and raise
-``NotImplementedError``.
+:meth:`MoEServingEngine.from_checkpoint` is the warm start from a
+``paddle.save``d ERNIE-MoE state dict. ``autofuse`` is not ported and
+raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -57,8 +59,7 @@ from .kv_pool import PagePool
 __all__ = ["MoEServingEngine", "moe_decode_step_fn", "moe_prefill_fn"]
 
 _NEG_INF = -1e30
-_ITEM = ("ROADMAP.md, Queue 1, item 1 (MoE: from_checkpoint and "
-         "autofuse)")
+_ITEM = "ROADMAP.md, Queue 1, item 1 (MoE: autofuse)"
 
 # the eager model's LayerNorm (var + sqrt), not GPT's rsqrt form
 _eln = layer_norm
@@ -276,8 +277,43 @@ class MoEServingEngine:
 
     @classmethod
     def from_checkpoint(cls, path, config: ErnieMoeConfig, **kw):
-        raise NotImplementedError(
-            f"from_checkpoint needs framework/io, not ported yet ({_ITEM})")
+        """Checkpoint → engine: ``path`` is a ``paddle.save``d ERNIE-MoE
+        state dict (``ErnieMoeForPretraining`` keys, or bare
+        ``ErnieMoeModel`` keys, which get the ``ernie.`` prefix), written
+        by the port or by the JAX package. With bare keys the MLM head
+        keeps the freshly built model's weights (seed 0), as the JAX
+        engine's does. The model is built on the engine's device, loaded
+        in f32, put in eval mode and handed with ``kw`` to the
+        constructor."""
+        from ..framework.io import load
+        from ..models.convert import ernie_moe_state_dict_from_numpy
+        from ..models.ernie import ErnieMoeModel
+        resolve_device(kw.get("device"))     # no card: raise before reading
+        state = load(path, return_numpy=True)
+        model = ErnieMoeForPretraining(
+            ErnieMoeModel(config, device=kw.get("device")))
+        word = "ernie.embeddings.word_embeddings.weight"
+        if not any(k.startswith("ernie.") for k in state):
+            state = {f"ernie.{k}": v for k, v in state.items()}
+            head = {k: v.detach().cpu().numpy()
+                    for k, v in model.state_dict().items()
+                    if not k.startswith("ernie.")}
+            if word in state:
+                head["decoder_weight"] = state[word]
+            state = {**head, **state}
+        # the port's own state dict holds the tied embedding under both
+        # names; the JAX one once, as decoder_weight
+        tied = state.pop(word, None)
+        if tied is not None:
+            if "decoder_weight" not in state:
+                state["decoder_weight"] = tied
+            elif not np.array_equal(tied, state["decoder_weight"]):
+                raise ValueError(f"{word} differs from decoder_weight: the "
+                                 f"embedding is tied")
+        model.load_state_dict(ernie_moe_state_dict_from_numpy(state),
+                              strict=True)
+        model.eval()
+        return cls(model, config, **kw)
 
     # -------------------------------------------------------------- info
     def prefill_signatures(self) -> set:

@@ -1616,3 +1616,62 @@ def test_train_step_sync_in_the_step_raises(train_step_card):
     res = train_step_card["failing"]
     assert res["raised"] is not None and res["graphs"] == 0
     assert train_step_card["bfloat16_gather"]["graphs"] == 1
+
+
+@pytest.mark.gpu
+def test_facade_on_cuda_matches_cpu():
+    """The tensor facade on the card: ``to_tensor`` with no place lands on
+    it, and a chain of ops with ``backward``, a ``create_graph`` second
+    derivative, a PyLayer and a bf16 ``auto_cast`` matmul give the CPU's
+    values and gradients; ``FLAGS_check_nan_inf`` raises on a NaN."""
+    _cuda()
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.amp import auto_cast
+    from paddle_tpu_torch.autograd import PyLayer
+    from paddle_tpu_torch.framework import place as tplace
+
+    class Cube(PyLayer):
+        @staticmethod
+        def forward(ctx, x):
+            ctx.save_for_backward(x)
+            return x * x * x
+
+        @staticmethod
+        def backward(ctx, g):
+            (x,) = ctx.saved_tensor()
+            return g * 3.0 * x * x
+
+    x_np, w_np = _rand((8, 16), 1), _rand((16, 4), 2)
+
+    def run():
+        x = paddle.to_tensor(x_np, stop_gradient=False)
+        w = paddle.to_tensor(w_np, stop_gradient=False)
+        h = paddle.tanh(paddle.matmul(x, w)) * 2.0 + 1.0
+        loss = paddle.mean(paddle.exp(h[:, :2]) + Cube.apply(h[:, 2:]))
+        loss.backward()
+        (g1,) = paddle.grad(paddle.sum(paddle.sin(x) * x), [x],
+                            create_graph=True)
+        (g2,) = paddle.grad(paddle.sum(g1), [x])
+        with auto_cast(dtype="bfloat16"):
+            m = paddle.matmul(x, w)
+        assert m.dtype == paddle.bfloat16
+        return [loss, x.grad, w.grad, g1, g2, m.astype("float32")]
+
+    prev = tplace._current_place
+    try:
+        tplace._current_place = None
+        assert paddle.to_tensor([1.0]).place == paddle.CUDAPlace(0)
+        on_card = run()
+        assert all(t.place == paddle.CUDAPlace(0) for t in on_card)
+        paddle.set_flags({"FLAGS_check_nan_inf": True})
+        try:
+            with pytest.raises(FloatingPointError):
+                paddle.log(paddle.to_tensor([-1.0]))
+        finally:
+            paddle.set_flags({"FLAGS_check_nan_inf": False})
+        paddle.set_device("cpu")
+        on_cpu = run()
+    finally:
+        tplace._current_place = prev
+    for a, b, tol in zip(on_card, on_cpu, [1e-5] * 5 + [2e-2]):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=tol, atol=tol)
