@@ -2,10 +2,10 @@
 
     python3 chip_smoke.py [--json-out PATH] [--parent ROOT]
 
-Fifteen phases, one result per line, in this order: build, tensor_api,
+Sixteen phases, one result per line, in this order: build, tensor_api,
 flash, flash_bwd, paged, paged_prefill, int8, moe_dispatch, serving,
 serving_prefix, serving_int8, serving_moe, checkpoint, training,
-training_moe:
+training_moe, training_bert:
 
 1. device and build — the card's name and power limit, and the build of
    every CUDA kernel from ``paddle_tpu_torch/csrc`` with nvcc for sm_90a;
@@ -174,7 +174,28 @@ training_moe:
     engine built from the same model in memory, launches counted exactly;
     the save and load times, the checkpoint bytes, ``from_checkpoint``'s
     time and the time to the first token after it printed beside the
-    card's name and power limit (int8 reads the full-key file again).
+    card's name and power limit (int8 reads the full-key file again);
+12. ``training_bert`` — BERT-base pretraining (``bench_bert``, BASELINE
+    config #2) with a model built only from the ported ``paddle.nn``:
+    ``BertForPretraining(BertModel(bert_base_config()))`` (12 layers,
+    hidden 768, 12 heads of 64, FFN 3072, V = 30522, dropout 0.1 / 0.1;
+    f32 weights from ``paddle.seed(0)``), B = 16, S = 512, ids and labels
+    from ``default_rng(0)``, ``forward_with_mlm_loss`` under
+    ``auto_cast(bf16)``, ``AdamW(1e-4)``, through ``ParallelTrainStep``
+    captured as one CUDA graph. (a) the published config (the attention
+    dropout sends the JAX gate's attention to its dense form, so no kernel
+    of the table launches, which is held): the first call and one replay,
+    10 timed replays (tokens/s, step p50, host staging + launch against
+    the device's span, MFU at ``model_flops_per_token``, peak memory,
+    first-call and capture time, pool bytes, host syncs: none allowed),
+    one profiled replay (busy share, kernel groups, the largest kernels),
+    the dropout masks of two replays (kept share over every hidden
+    dropout within 3 sigma of 0.9; the embeddings' masks differ), and the
+    eager facade step beside it; (b) ``attention_probs_dropout_prob=0``
+    (the flash route): the same replays with rows 1-3 launched 12/12/12 a
+    replay, captured = eager bit for bit over 5 steps with all dropout at
+    0, and at 2 layers, B = 2, the loss and every gradient with the
+    kernels against the plain versions in f32 and bf16.
 
 Exits non-zero, without the final line, when CUDA is unavailable or any
 phase fails. The last line is ``{"ok": true, "device": {...}}``; the line
@@ -338,6 +359,14 @@ MOE_KVP_TOL = {"float32": (1e-4, 1e-4), "bfloat16": (1.5e-2, 1e-4)}
 MOE_KVP_B = 2
 # rows 1-3 at the ERNIE-MoE training shape: [B, S, N, d], non-causal
 MOE_ATTN_SHAPE = (16, 512, 12, 64)
+# BERT-base pretraining: bench_bert (bench.py:522, BASELINE config #2) at
+# bert_base_config(), B = 16, S = 512, AdamW lr 1e-4 under auto_cast(bf16),
+# through ParallelTrainStep: 2 warm calls (the first captures), then 10
+# timed replays on one batch; captured against eager over 5 steps with all
+# dropout at 0
+BERT_TRAIN_B, BERT_TRAIN_S, BERT_TRAIN_WARMUP, BERT_TRAIN_STEPS = \
+    16, 512, 2, 10
+BERT_GRAPH_STEPS = 5
 
 
 _T0 = time.perf_counter()
@@ -4127,7 +4156,7 @@ def _moe_scaler_check(torch, np, res):
     halve the scale; the next replay must update."""
     from paddle_tpu_torch.amp import GradScaler
     from paddle_tpu_torch.distributed import ParallelTrainStep
-    from paddle_tpu_torch.nn import Linear
+    from paddle_tpu_torch.nn._torch_layers import Linear
     from paddle_tpu_torch.optimizer import AdamW
     lin = Linear(768, 768, generator=torch.Generator("cuda").manual_seed(0))
     opt = AdamW(1e-3, parameters=lin.named_parameters())
@@ -4181,6 +4210,412 @@ def phase_training_moe(torch, np, res):
     _moe_scaler_check(torch, np, res)
 
 
+# ----------------------------------------------------------------- phase 16
+
+def _bert_model(seed, **kw):
+    """``BertForPretraining(BertModel(bert_base_config(**kw)))`` built from
+    ``paddle_tpu_torch.nn`` on the card, its f32 weights drawn from the
+    facade's generator after ``paddle.seed(seed)``, in training mode."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.models.bert import (BertForPretraining, BertModel,
+                                              bert_base_config)
+    paddle.seed(seed)
+    return BertForPretraining(BertModel(bert_base_config(**kw))).train()
+
+
+def _bert_np_batch(np, cfg, b=BERT_TRAIN_B, seed=0):
+    """ids and labels in [0, V), as bench_bert draws them (numpy)."""
+    rng = np.random.default_rng(seed)
+    return tuple(rng.integers(0, cfg.vocab_size, (b, BERT_TRAIN_S))
+                 .astype(np.int64) for _ in range(2))
+
+
+def _bert_loss_bf16(model, ids, labels):
+    """The loss_fn a user hands ParallelTrainStep: ``forward_with_mlm_loss``
+    under ``auto_cast(bf16)`` (O1), on facade Tensors."""
+    from paddle_tpu_torch.amp import auto_cast
+    with auto_cast(dtype="bfloat16"):
+        return model.forward_with_mlm_loss(ids, labels)
+
+
+def _bert_train_step(model):
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.distributed import ParallelTrainStep
+    return ParallelTrainStep(model, paddle.optimizer.AdamW(
+        learning_rate=1e-4, parameters=model.parameters()), _bert_loss_bf16)
+
+
+def _bert_flops_per_token(cfg, S):
+    """model_flops_per_token of the port's GPT helper on BERT's fields:
+    6 N (N the matmul weights, the tied head and the position table) + 12
+    L H S for attention."""
+    from paddle_tpu_torch.models.gpt import model_flops_per_token
+    gptish = type("C", (), dict(
+        hidden_size=cfg.hidden_size, num_layers=cfg.num_hidden_layers,
+        vocab_size=cfg.vocab_size, intermediate_size=cfg.intermediate_size,
+        max_position_embeddings=cfg.max_position_embeddings))
+    return model_flops_per_token(gptish, S)
+
+
+class _MaskProbe:
+    """Forward post hooks on every ``nn.Dropout`` with p > 0: each output's
+    count of kept (nonzero) elements into a device buffer, and the
+    embeddings' mask itself, by in-place copies a captured graph records,
+    so each replay leaves its own masks there."""
+
+    def __init__(self, torch, model, shape):
+        import paddle_tpu_torch as paddle
+        drops = [m for m in model.sublayers()
+                 if isinstance(m, paddle.nn.Dropout) and m.p > 0]
+        dev = torch.device("cuda")
+        self.kept = torch.zeros(len(drops), dtype=torch.int64, device=dev)
+        self.numel = [0] * len(drops)
+        self.mask = torch.zeros(shape, dtype=torch.bool, device=dev)
+        self.p = drops[0].p
+        for i, m in enumerate(drops):
+            m.register_forward_post_hook(self._hook(torch, i, m is drops[0]))
+
+    def _hook(self, torch, i, first):
+        def hook(layer, inputs, out):
+            v = out._value
+            self.numel[i] = v.numel()
+            with torch.no_grad():
+                self.kept[i].copy_((v != 0).sum())
+                if first:
+                    self.mask.copy_(v != 0)
+        return hook
+
+    def read(self):
+        """(kept share over every probed output, a copy of the mask)."""
+        kept = self.kept.sum().item()
+        return kept / sum(self.numel), self.mask.clone()
+
+
+def _bert_timed(torch, step, ids, labels, n):
+    """``n`` calls of ``step``, each between CUDA events: losses, walls,
+    host issue times, device spans and each call's launches."""
+    ev = lambda: torch.cuda.Event(enable_timing=True)    # noqa: E731
+    losses, walls, issues, spans, per_step = [], [], [], [], []
+    for _ in range(n):
+        c0 = _counts()
+        e0, e1 = ev(), ev()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        e0.record()
+        loss = step(ids, labels)
+        t1 = time.perf_counter()
+        e1.record()
+        e1.synchronize()
+        walls.append(time.perf_counter() - t0)
+        issues.append(t1 - t0)
+        spans.append(e0.elapsed_time(e1))
+        losses.append(float(loss))
+        per_step.append({k: v - c0[k] for k, v in _counts().items()})
+    return losses, walls, issues, spans, per_step
+
+
+def _bert_profile(torch, fn):
+    wall, by_name = _device_time(torch, fn)
+    groups = _group_times(by_name)
+    busy_us = sum(by_name.values())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
+    return dict(profiled_wall_ms=wall * 1e3,
+                profiled_device_ms=busy_us / 1e3 if by_name else None,
+                busy_share=busy_us / 1e6 / wall if by_name else None,
+                device_ms_by_group={g: us / 1e3 for g, us in sorted(
+                    groups.items(), key=lambda kv: -kv[1])},
+                top_kernels_ms=[(name[:100], us / 1e3) for name, us in top])
+
+
+def _log_profile(label, e2e):
+    if e2e["profiled_device_ms"] is None:
+        _log(f"profile {label}: device time not measured (the profiler saw "
+             f"no CUDA activity)")
+        return
+    _log(f"profile {label}: wall {e2e['profiled_wall_ms']:.2f} ms, device "
+         f"busy {e2e['profiled_device_ms']:.2f} ms (share "
+         f"{e2e['busy_share']:.3f}); " + ", ".join(
+             f"{g} {ms:.3f} ms" for g, ms in e2e["device_ms_by_group"].items()))
+    for name, ms in e2e["top_kernels_ms"]:
+        _log(f"  {ms:9.3f} ms  {name}")
+
+
+def _bert_captured_run(torch, np, res, label, **cfg_kw):
+    """BERT-base through ParallelTrainStep, captured: the first call (the
+    eager step on a side stream, then the capture) and one replay, then
+    BERT_TRAIN_STEPS timed replays; syncs, launches, memory and one
+    profiled replay. Returns the numbers, the step and the mask probe."""
+    model = _bert_model(0, **cfg_kw)
+    cfg = model.bert.config
+    B, S = BERT_TRAIN_B, BERT_TRAIN_S
+    ids, labels = _bert_np_batch(np, cfg)
+    probe = _MaskProbe(torch, model, (B, S, cfg.hidden_size))
+    step = _bert_train_step(model)
+    n_params = sum(p.size for p in model.parameters())
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    first = []
+    t0 = time.perf_counter()
+    first_syncs = _syncs_in(torch, lambda: first.append(step(ids, labels)))
+    losses = [float(first[0])]
+    first_s = time.perf_counter() - t0
+    losses.append(float(step(ids, labels)))
+    _zero_counts()
+    timed, walls, issues, spans, per_step = _bert_timed(
+        torch, step, ids, labels, BERT_TRAIN_STEPS)
+    losses += timed
+    counts = _counts()
+    peak = torch.cuda.max_memory_allocated()
+    if not all(math.isfinite(x) for x in timed) or timed[-1] >= timed[0]:
+        raise AssertionError(f"training_bert {label} losses not finite or "
+                             f"not falling: {losses}")
+    replay_syncs = _syncs_in(torch, lambda: step(ids, labels))
+    if first_syncs or replay_syncs:
+        raise AssertionError(f"training_bert {label} host syncs: first call "
+                             f"{first_syncs}, replay {replay_syncs}")
+    fpt, n_mm = _bert_flops_per_token(cfg, S)
+    tokens_per_s = B * S * BERT_TRAIN_STEPS / sum(walls)
+    e2e = dict(tokens_per_s=tokens_per_s,
+               step_p50_ms=_pct(walls, 0.5) * 1e3,
+               step_ms=[x * 1e3 for x in walls],
+               host_issue_p50_ms=_pct(issues, 0.5) * 1e3,
+               host_issue_ms=[x * 1e3 for x in issues],
+               device_span_p50_ms=_pct(spans, 0.5),
+               mfu=tokens_per_s * fpt / PEAK_FLOPS["bfloat16"],
+               flops_per_token=fpt, n_matmul_params=n_mm,
+               n_params=n_params, max_memory_allocated_bytes=peak,
+               first_call_s=first_s, capture_s=step.capture_s,
+               graphs=len(step.captured_signatures),
+               pool_bytes=step.graph_pool_bytes(), losses=losses,
+               host_syncs_first_call=len(first_syncs),
+               host_syncs_replay=len(replay_syncs), launches=counts,
+               launches_per_step=per_step[0], per_step=per_step,
+               config=dict(cfg.__dict__), batch=[B, S])
+    e2e.update(_bert_profile(torch, lambda: float(step(ids, labels))))
+    _log(f"training_bert {label}: BertForPretraining(BertModel("
+         f"bert_base_config({', '.join(f'{k}={v}' for k, v in cfg_kw.items())}"
+         f"))): layers={cfg.num_hidden_layers} hidden={cfg.hidden_size} "
+         f"heads={cfg.num_attention_heads} ffn={cfg.intermediate_size} "
+         f"vocab={cfg.vocab_size} dropout hidden "
+         f"{cfg.hidden_dropout_prob} / attention "
+         f"{cfg.attention_probs_dropout_prob}, {n_params} f32 parameters, "
+         f"B={B} S={S}, auto_cast bf16 (O1), AdamW lr=1e-4, "
+         f"ParallelTrainStep captured: first call (eager step + capture) "
+         f"{first_s * 1e3:.1f} ms, capture {step.capture_s * 1e3:.1f} ms, "
+         f"graphs {e2e['graphs']}, pool {e2e['pool_bytes']} bytes, host "
+         f"syncs in the first call {len(first_syncs)}, in a replay "
+         f"{len(replay_syncs)}")
+    _log(f"training_bert {label}: {BERT_TRAIN_STEPS} timed replays: "
+         f"{tokens_per_s:.1f} tokens/s, step p50 {e2e['step_p50_ms']:.2f} ms "
+         f"(steps {', '.join(f'{x:.2f}' for x in e2e['step_ms'])}), host "
+         f"stage + launch p50 {e2e['host_issue_p50_ms']:.3f} ms against the "
+         f"device's span between events p50 {e2e['device_span_p50_ms']:.2f} "
+         f"ms, MFU {e2e['mfu']:.4f} ({fpt / 1e9:.4f} GFLOP/token: "
+         f"model_flops_per_token, N = {n_mm}), peak memory {peak} bytes; "
+         f"on {res.get('nvidia_smi')}")
+    _log(f"training_bert {label} losses (first call, warm replay, timed): "
+         f"{', '.join(f'{x:.6f}' for x in losses)}; launches per replay "
+         f"{per_step[0]}")
+    _log_profile(f"one captured training_bert {label} replay", e2e)
+    return e2e, step, probe, (ids, labels)
+
+
+def _bert_eager_run(torch, np, res):
+    """The eager facade step in the same call: BERT-base at the published
+    config, the dygraph loop a user writes (loss under auto_cast(bf16),
+    backward, AdamW.step, clear_grad), 2 warm-up and 10 timed steps."""
+    import paddle_tpu_torch as paddle
+    model = _bert_model(0)
+    cfg = model.bert.config
+    opt = paddle.optimizer.AdamW(learning_rate=1e-4,
+                                 parameters=model.parameters())
+    ids, labels = (paddle.to_tensor(a) for a in _bert_np_batch(np, cfg))
+
+    def step(i, y):
+        loss = _bert_loss_bf16(model, i, y)
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        return loss.detach()
+    for _ in range(BERT_TRAIN_WARMUP):
+        step(ids, labels)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, walls, issues, spans, _ = _bert_timed(
+        torch, step, ids, labels, BERT_TRAIN_STEPS)
+    fpt, _ = _bert_flops_per_token(cfg, BERT_TRAIN_S)
+    tokens_per_s = BERT_TRAIN_B * BERT_TRAIN_S * BERT_TRAIN_STEPS / sum(walls)
+    out = dict(tokens_per_s=tokens_per_s,
+               step_p50_ms=_pct(walls, 0.5) * 1e3,
+               host_issue_p50_ms=_pct(issues, 0.5) * 1e3,
+               device_span_p50_ms=_pct(spans, 0.5),
+               mfu=tokens_per_s * fpt / PEAK_FLOPS["bfloat16"],
+               max_memory_allocated_bytes=torch.cuda.max_memory_allocated(),
+               losses=losses)
+    out.update(_bert_profile(torch, lambda: float(step(ids, labels))))
+    _log(f"training_bert (a) the eager facade step in the same call: "
+         f"{tokens_per_s:.1f} tokens/s, step p50 {out['step_p50_ms']:.2f} ms, "
+         f"host issue p50 {out['host_issue_p50_ms']:.2f} ms, device span p50 "
+         f"{out['device_span_p50_ms']:.2f} ms, MFU {out['mfu']:.4f}, peak "
+         f"memory {out['max_memory_allocated_bytes']} bytes; losses "
+         f"{', '.join(f'{x:.6f}' for x in losses)}")
+    _log_profile("one eager training_bert step", out)
+    if not all(math.isfinite(x) for x in losses) or losses[-1] >= losses[0]:
+        raise AssertionError(f"training_bert eager losses not finite or not "
+                             f"falling: {losses}")
+    return out
+
+
+def _bert_dropout_checks(torch, step, probe, ids, labels):
+    """Two replays of the (a) graph: each one's kept share over every
+    hidden dropout (25 outputs of [16, 512, 768]) within 3 sigma of
+    1 - p, and the embeddings' masks of the two differ."""
+    shares, masks = [], []
+    for _ in range(2):
+        step(ids, labels)
+        torch.cuda.synchronize()
+        share, mask = probe.read()
+        shares.append(share)
+        masks.append(mask)
+    n = sum(probe.numel)
+    sigma = math.sqrt(probe.p * (1 - probe.p) / n)
+    differ = int((masks[0] != masks[1]).sum().item())
+    ok = all(abs(s - (1 - probe.p)) <= 3 * sigma for s in shares) \
+        and differ > 0
+    out = dict(kept_share=shares, sigma=sigma, elements=n,
+               mask_elements_differing=differ, ok=ok)
+    _log(f"training_bert (a) dropout masks of two replays: kept shares "
+         f"{shares[0]:.6f}, {shares[1]:.6f} over {n} elements each (want "
+         f"{1 - probe.p} within 3 sigma = {3 * sigma:.2e}); the embeddings' "
+         f"masks differ in {differ} of {masks[0].numel()} elements "
+         f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("training_bert dropout masks wrong under replay")
+    return out
+
+
+def _bert_graph_check(torch, np):
+    """(b) all dropout at 0: ParallelTrainStep captured against its eager
+    switch from the same seed, BERT_GRAPH_STEPS steps, every loss and
+    parameter bit for bit, and the flash launches of every step."""
+    from paddle_tpu_torch.distributed.fleet import train_step
+    runs = {}
+    for how in ("eager", "captured"):
+        model = _bert_model(3, hidden_dropout_prob=0.0,
+                            attention_probs_dropout_prob=0.0)
+        L = model.bert.config.num_hidden_layers
+        ids, labels = _bert_np_batch(np, model.bert.config)
+        step = _bert_train_step(model)
+        losses, per_step = [], []
+        with train_step._eager_step() if how == "eager" \
+                else contextlib.nullcontext():
+            for _ in range(BERT_GRAPH_STEPS):
+                c0 = _counts()
+                losses.append(float(step(ids, labels)))
+                per_step.append({k: v - c0[k] for k, v in _counts().items()})
+        runs[how] = dict(losses=losses, per_step=per_step, params={
+            n: p._value.detach().clone()
+            for n, p in model.named_parameters()})
+        del step, model
+        torch.cuda.empty_cache()
+    e, c = runs["eager"], runs["captured"]
+    diff = max((v.float() - e["params"][k].float()).abs().max().item()
+               for k, v in c["params"].items())
+    same = c["losses"] == e["losses"] and diff == 0.0
+    want = dict(flash=L, flash_bwd_dq=L, flash_bwd_dkv=L)
+    for how, run in runs.items():
+        for i, got in enumerate(run["per_step"]):
+            _check_counts(f"training_bert (b) {how} step {i}", got, want)
+    _log(f"training_bert (b) all dropout 0, captured vs eager over "
+         f"{BERT_GRAPH_STEPS} steps: losses {c['losses']} vs {e['losses']}, "
+         f"parameters max |diff| {diff:.3e}: "
+         f"{'bit-equal' if same else 'DIFFER'}; launches per step "
+         f"{c['per_step'][0]}")
+    if not same:
+        raise AssertionError("captured BERT step differs from eager")
+    return dict(losses=c["losses"], eager_losses=e["losses"],
+                max_abs_param_diff=diff, equal_to_eager=same,
+                launches_per_step=c["per_step"][0])
+
+
+def _bert_kernel_vs_plain(torch, np):
+    """(b) 2 layers at base widths, B = 2, S = 512, attention dropout 0 (the
+    flash route), hidden dropout 0: the loss and every gradient with the
+    kernels against the same model with every kernel on its plain version,
+    f32 and bf16 under auto_cast, at the training_moe check's limits."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.amp import auto_cast
+    runs, out = {}, {}
+    for dt in ("float32", "bfloat16"):
+        for which in ("kernel", "plain"):
+            model = _bert_model(2, num_hidden_layers=2,
+                                hidden_dropout_prob=0.0,
+                                attention_probs_dropout_prob=0.0)
+            ids, labels = (paddle.to_tensor(a) for a in _bert_np_batch(
+                np, model.bert.config, MOE_KVP_B, 2))
+            ctx = _plain_kernels if which == "plain" \
+                else contextlib.nullcontext
+            _zero_counts()
+            with ctx():
+                with auto_cast(enable=dt == "bfloat16", dtype="bfloat16"):
+                    loss = model.forward_with_mlm_loss(ids, labels)
+                loss.backward()
+            want = {} if which == "plain" else dict(
+                flash=2, flash_bwd_dq=2, flash_bwd_dkv=2)
+            _check_counts(f"training_bert (b) {dt} {which}", _counts(), want)
+            runs[dt, which] = (float(loss), {
+                n: p.grad._value for n, p in model.named_parameters()
+                if p.grad is not None})
+            del model
+        grad_tol, loss_tol = MOE_KVP_TOL[dt]
+        (lk, gk), (lp, gp) = runs[dt, "kernel"], runs[dt, "plain"]
+        errs = _leaf_rel_err(gk, gp)
+        worst, where = errs[0]
+        ok = abs(lk - lp) <= loss_tol and worst <= grad_tol
+        out[dt] = dict(loss_kernel=lk, loss_plain=lp,
+                       loss_abs_err=abs(lk - lp), grad_rel_err=worst,
+                       worst_leaf=where, worst_leaves=errs[:4], ok=ok)
+        _log(f"training_bert (b) 2 layers B={MOE_KVP_B} S={BERT_TRAIN_S} "
+             f"{dt}, kernels vs plain versions: loss {lk:.6f} vs {lp:.6f} "
+             f"(|diff| {abs(lk - lp):.3e}, tol {loss_tol:g}); gradients "
+             f"max |a-b|/|b| {worst:.3e} ({where}; tol {grad_tol:g}; then "
+             + ", ".join(f"{k} {e:.2e}" for e, k in errs[1:4])
+             + f") {'ok' if ok else 'FAIL'}")
+    if not all(out[dt]["ok"] for dt in ("float32", "bfloat16")):
+        raise AssertionError("training_bert kernels disagree with their "
+                             "plain versions")
+    return out
+
+
+def phase_training_bert(torch, np, res):
+    # (a) BERT-base at its published config: attention dropout 0.1, so the
+    # JAX gate's dense attention (no kernel launch), hidden dropout 0.1
+    a, step, probe, (ids, labels) = _bert_captured_run(torch, np, res, "(a)")
+    _check_counts("training_bert (a) replays", a["launches"], {})
+    a["dropout"] = _bert_dropout_checks(torch, step, probe, ids, labels)
+    del step, probe
+    torch.cuda.empty_cache()
+    a["eager"] = _bert_eager_run(torch, np, res)
+    res["training_bert_captured"] = a
+    torch.cuda.empty_cache()
+    # (b) attention dropout 0: the flash route, rows 1-3 12/12/12 a replay
+    b, step, probe, _ = _bert_captured_run(
+        torch, np, res, "(b)", attention_probs_dropout_prob=0.0)
+    L = b["config"]["num_hidden_layers"]
+    want = dict(flash=L, flash_bwd_dq=L, flash_bwd_dkv=L)
+    for i, got in enumerate(b["per_step"]):
+        _check_counts(f"training_bert (b) replay {i}", got, want)
+    del step, probe
+    torch.cuda.empty_cache()
+    _log(f"training_bert tokens/s: (a) dense attention with dropout "
+         f"{a['tokens_per_s']:.1f} (eager {a['eager']['tokens_per_s']:.1f}), "
+         f"(b) flash kernels {b['tokens_per_s']:.1f}")
+    b["graph_check"] = _bert_graph_check(torch, np)
+    torch.cuda.empty_cache()
+    b["kernel_vs_plain"] = _bert_kernel_vs_plain(torch, np)
+    res["training_bert_flash"] = b
+
+
 # --------------------------------------------------------------------- main
 
 def main(argv=None) -> int:
@@ -4229,7 +4664,8 @@ def main(argv=None) -> int:
               ("serving_moe", lambda: phase_serving_moe(torch, np, res)),
               ("checkpoint", lambda: phase_checkpoint(torch, np, res)),
               ("training", lambda: phase_training(torch, np, res)),
-              ("training_moe", lambda: phase_training_moe(torch, np, res))]
+              ("training_moe", lambda: phase_training_moe(torch, np, res)),
+              ("training_bert", lambda: phase_training_bert(torch, np, res))]
     for name, fn in phases:
         t0 = time.perf_counter()
         try:
@@ -4288,6 +4724,12 @@ def main(argv=None) -> int:
     for key in ("moe_dispatch", "moe_combine"):
         res[key]["launches_by_path"]["training_moe"] = \
             res["training_moe_graph_check"]["fused"]["replay_launches"][key]
+    # training_bert: part (b)'s 10 timed replays (attention dropout 0, the
+    # flash route); part (a) (the published config's attention dropout
+    # 0.1) launches none of the kernels, which its check holds
+    for key in ("flash", "flash_bwd_dq", "flash_bwd_dkv"):
+        res[key]["launches_by_path"]["training_bert"] = \
+            res["training_bert_flash"]["launches"][key]
     # checkpoint: the counted runs of the engines from_checkpoint built
     # (f32, captured), summed over the phase's GPT and MoE cases
     for key in ("flash", "paged", "int8", "moe_dispatch", "moe_combine"):

@@ -9,7 +9,8 @@ is built (the CUDA kernels compile at their first launch, see
 :mod:`paddle_tpu_torch.kernels._build`), and no RNG state is seeded.
 
 Ported so far, GPT serving and training, ERNIE-MoE serving and
-pretraining, and paddle's tensor facade (``ROADMAP.md`` lists the rest):
+pretraining, paddle's tensor facade and ``paddle.nn`` over it, and BERT
+built from it (``ROADMAP.md`` lists the rest):
 
 - :mod:`.framework` — ``Tensor``/``Parameter`` over ``torch.Tensor``,
   ``to_tensor``, dtypes, places (``set_device``), autograd on torch's
@@ -17,6 +18,8 @@ pretraining, and paddle's tensor facade (``ROADMAP.md`` lists the rest):
   ``save``/``load``; :mod:`.autograd` — ``PyLayer``;
 - :mod:`.ops` — the ``paddle.*`` ops and their Tensor methods, all at the
   top level (``import paddle_tpu_torch as paddle``);
+- :mod:`.nn` — ``Layer``, the layers, ``functional``, ``initializer`` and
+  the clips over the facade; :mod:`.models.bert` — BERT built from them;
 
 - :mod:`.models.gpt` — the GPT model family as ``nn.Module``s and the
   training step (one CUDA graph per batch shape on the card);
@@ -57,3 +60,5 @@ from .framework.dtype import bool_ as bool  # noqa: E402,F401
 from .framework.io import save, load, CheckpointCorruptError  # noqa: E402,F401
 from .ops import *  # noqa: E402,F401,F403  (the paddle.* op surface)
 from . import ops  # noqa: E402,F401
+from . import amp, nn, optimizer  # noqa: E402,F401
+from .nn.layer.layers import ParamAttr  # noqa: E402,F401

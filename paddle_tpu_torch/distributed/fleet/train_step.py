@@ -25,9 +25,19 @@ eagerly on a side stream, where a host sync raises, and then captures it
 as one CUDA graph in the step's one memory pool; later calls stage the
 batch, lr and the scale through one pinned buffer with one non-blocking
 copy and replay the graph. Every ``torch.Generator`` that a module of the
-model holds (the MoE gates' ``rng``) is registered with each graph, so a
-replay draws new numbers as an eager step would. A capture that fails
-raises; nothing falls back. On the CPU the step runs eagerly.
+model holds (the MoE gates' ``rng``), and the facade's generator of the
+device (what dropout and the facade's random ops draw from), is registered
+with each graph, so a replay draws new numbers as an eager step would
+(``paddle.seed`` after the first call leaves the graphs on the generator
+they captured). A capture that fails raises; nothing falls back. On the
+CPU the step runs eagerly.
+
+The model is a ``torch.nn.Module`` (``loss_fn`` gets torch tensors and
+returns one) or a facade :class:`paddle_tpu_torch.nn.Layer`: then
+``loss_fn(model, *batch)`` gets the batch as facade Tensors and returns a
+facade Tensor, as the JAX step's does, the gradients are taken on the
+parameters' torch leaves, which the update writes in place, and the step
+returns a facade Tensor.
 
 At one device there is nothing to shard or donate: ``zero_stage``,
 ``batch_spec`` and ``data_axes`` (the ZeRO and batch shardings over the
@@ -46,10 +56,14 @@ from collections.abc import Mapping
 import numpy as np
 import torch
 
+from ...framework import random as random_mod
 from ...framework.graphs import (StagedInputs, add_counts, capturing_on,
                                  counted, eager_step, no_gc, pool_bytes,
                                  sync_is_error)
+from ...framework.tensor import Tensor
+from ...nn.layer.layers import Layer
 from ...optimizer.lr import LRScheduler
+from ...optimizer.optimizer import _leaf, _trainable
 
 __all__ = ["ParallelTrainStep"]
 
@@ -79,13 +93,31 @@ def _degrees(hcg, mesh):
 
 
 def _generators(model):
-    """Every CUDA ``torch.Generator`` a module of ``model`` holds."""
+    """Every CUDA ``torch.Generator`` a module (or layer) of ``model``
+    holds."""
     found = {}
-    for m in model.modules():
+    mods = model.sublayers(include_self=True) if isinstance(model, Layer) \
+        else model.modules()
+    for m in mods:
         for v in vars(m).values():
             if isinstance(v, torch.Generator) and v.device.type == "cuda":
                 found[id(v)] = v
     return list(found.values())
+
+
+def _batch_value(b):
+    """A batch input (numpy array, torch or facade tensor) as a torch
+    tensor."""
+    if isinstance(b, Tensor):
+        return b._value.detach()
+    if isinstance(b, torch.Tensor):
+        return b
+    return torch.as_tensor(np.asarray(b))
+
+
+def _detached(v):
+    """A state value (a facade Tensor or a torch tensor) as a copy."""
+    return _leaf(v).detach().clone()
 
 
 class _StepGraph:
@@ -126,9 +158,9 @@ class ParallelTrainStep:
         self.last_found_inf = False
         self.flops_per_token = None
         self._step_count = 0
+        self._layer = isinstance(model, Layer)
         # the model's trainable parameters, in the optimizer's order
-        trainable = {id(p): p for p in model.parameters()
-                     if p.requires_grad and getattr(p, "trainable", True)}
+        trainable = {id(p): p for p in model.parameters() if _trainable(p)}
         if optimizer._parameter_list is None:
             raise ValueError("the optimizer was created without parameters")
         self._params = [p for p in optimizer._parameter_list
@@ -139,7 +171,7 @@ class ParallelTrainStep:
                      if id(p) in missing]
             raise ValueError(f"trainable parameters the optimizer does not "
                              f"hold: {names}")
-        self._device = self._params[0].device
+        self._device = _leaf(self._params[0]).device
         optimizer._init_state(self._params)
         self._graphs = {}             # batch signature -> _StepGraph
         self._pool = None
@@ -158,15 +190,14 @@ class ParallelTrainStep:
         ``optacc/<accumulator>/<parameter's qualified name>``,
         ``opt/global_step``, ``opt/LR_Scheduler``, ``train/step_count`` and
         ``train/loss_scale``; the tensors are copies (a snapshot)."""
-        snap = lambda v: v.detach().clone()   # noqa: E731
-        state = {f"model/{k}": snap(v)
+        state = {f"model/{k}": _detached(v)
                  for k, v in self.model.state_dict().items()}
         names = {id(p): n for n, p in self.model.named_parameters()}
         opt = self.optimizer
         for acc, by_id in opt._accumulators.items():
             for pid, t in by_id.items():
                 if pid in names:
-                    state[f"optacc/{acc}/{names[pid]}"] = snap(t)
+                    state[f"optacc/{acc}/{names[pid]}"] = _detached(t)
         state["opt/global_step"] = int(opt._global_step)
         if isinstance(opt._learning_rate, LRScheduler):
             state["opt/LR_Scheduler"] = opt._learning_rate.state_dict()
@@ -181,7 +212,9 @@ class ParallelTrainStep:
         captured graphs stay valid."""
         model_state = {k[len("model/"):]: torch.as_tensor(v)
                        for k, v in state.items() if k.startswith("model/")}
-        if model_state:
+        if model_state and self._layer:
+            self.model.set_state_dict(model_state)
+        elif model_state:
             self.model.load_state_dict(model_state, strict=False)
         params = dict(self.model.named_parameters())
         opt = self.optimizer
@@ -221,11 +254,16 @@ class ParallelTrainStep:
         returns the loss before the update and ``found_inf`` (None without
         a scaler). What a graph captures."""
         params = self._params
+        leaves = [_leaf(p) for p in params]
         with torch.enable_grad():
-            loss = self.loss_fn(self.model, *batch)
+            if self._layer:
+                loss = self.loss_fn(self.model, *(
+                    Tensor._wrap(b, True) for b in batch))._value
+            else:
+                loss = self.loss_fn(self.model, *batch)
             target = loss if self.scaler is None else \
                 loss * scale.to(loss.dtype)
-            grads = torch.autograd.grad(target, params,
+            grads = torch.autograd.grad(target, leaves,
                                         materialize_grads=True)
         found_inf = None
         with torch.no_grad():
@@ -234,7 +272,7 @@ class ParallelTrainStep:
                 grads = [g * inv.to(g.dtype) for g in grads]
                 found_inf = torch.stack([torch.isfinite(g).all()
                                          for g in grads]).logical_not().any()
-                kept = params + self.optimizer._state_tensors(params)
+                kept = leaves + self.optimizer._state_tensors(params)
                 before = [t.clone() for t in kept]
             self.optimizer._apply(list(zip(params, grads)), lr)
             if found_inf is not None:
@@ -244,10 +282,10 @@ class ParallelTrainStep:
         return loss.detach(), found_inf
 
     def __call__(self, *batch):
-        """One step on ``batch`` (numpy arrays or tensors); returns the loss
-        before the update as a 0-d tensor that no later call overwrites."""
-        batch = [torch.as_tensor(np.asarray(b)) if not isinstance(
-            b, torch.Tensor) else b for b in batch]
+        """One step on ``batch`` (numpy arrays, torch or facade tensors);
+        returns the loss before the update as a 0-d tensor (a facade
+        Tensor for a Layer) that no later call overwrites."""
+        batch = [_batch_value(b) for b in batch]
         lr = float(self.optimizer.get_lr())
         scale = self.scaler._scale if self.scaler is not None else 1.0
         if capturing_on(self._device):
@@ -266,7 +304,7 @@ class ParallelTrainStep:
             self.last_found_inf = bool(found_inf)
             self.scaler._found_inf = self.last_found_inf
             self.scaler.update()
-        return loss
+        return Tensor._wrap(loss, True) if self._layer else loss
 
     train_batch = __call__
 
@@ -304,7 +342,7 @@ class ParallelTrainStep:
         if self._pool is None:
             self._pool = torch.cuda.graph_pool_handle()
         graph = torch.cuda.CUDAGraph()
-        for gen in self._generators:
+        for gen in self._generators + [random_mod.generator(dev)]:
             graph.register_generator_state(gen)
 
         def capture():

@@ -21,7 +21,7 @@ from torch import nn
 
 from .....amp import amp_cast
 from .....kernels.moe_dispatch import _top_k
-from .....nn import Linear
+from .....nn._torch_layers import Linear
 
 __all__ = ["BaseGate", "NaiveGate", "GShardGate", "SwitchGate"]
 
@@ -96,11 +96,12 @@ def _load_balance_loss(probs, top1_idx, num_expert):
 
 class GShardGate(BaseGate):
     """Top-2 gate with weights normalised to sum to one. ``gate`` is the
-    ``[d_model, tot_expert]`` :class:`~paddle_tpu_torch.nn.Linear`;
-    ``capacity`` the (train, eval) capacity factors ``MoELayer`` consults.
-    In training with ``random_routing`` the second choice is kept where
-    ``2 * p2 > u``, ``u`` uniform from ``rng`` (else its weight is 0; its
-    slot stays held, as in the JAX gate)."""
+    ``[d_model, tot_expert]``
+    :class:`~paddle_tpu_torch.nn._torch_layers.Linear`; ``capacity`` the
+    (train, eval) capacity factors ``MoELayer`` consults. In training with
+    ``random_routing`` the second choice is kept where ``2 * p2 > u``,
+    ``u`` uniform from ``rng`` (else its weight is 0; its slot stays held,
+    as in the JAX gate)."""
 
     def __init__(self, d_model, num_expert, world_size, topk=2,
                  capacity=(1.2, 2.4), random_routing=True, group=None, *,

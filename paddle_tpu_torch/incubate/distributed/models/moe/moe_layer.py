@@ -31,7 +31,7 @@ from .....amp.auto_cast import _entered, current_amp_state
 from .....kernels.moe_dispatch import (dispatch_indices, fused_moe_combine,
                                        fused_moe_dispatch,
                                        reference_moe_combine)
-from .....nn import Linear
+from .....nn._torch_layers import Linear
 from .gate import BaseGate, GShardGate, NaiveGate, SwitchGate
 
 __all__ = ["ExpertLayer", "MoELayer"]

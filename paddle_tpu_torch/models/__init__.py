@@ -1,1 +1,2 @@
-"""GPT model family (counterpart of ``paddle_tpu/models``)."""
+"""Model families (counterpart of ``paddle_tpu/models``): GPT, ERNIE-MoE
+and BERT."""

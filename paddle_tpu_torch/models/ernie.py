@@ -30,9 +30,10 @@ from ..amp import amp_cast
 from ..device import resolve_device
 from ..framework.random import make_generator
 from ..incubate.distributed.models.moe import ExpertLayer, MoELayer
-from ..nn import LayerNorm, Linear
-from .bert import (BertConfig, BertEmbeddings, MultiHeadAttention,
-                   TransformerEncoderLayer, additive_attention_mask)
+from ..nn._torch_layers import LayerNorm, Linear
+from ._encoder import (BertEmbeddings, MultiHeadAttention,
+                       TransformerEncoderLayer, additive_attention_mask)
+from .bert import BertConfig
 from .gpt import fused_mlm_cross_entropy
 
 __all__ = ["ErnieMoeConfig", "ernie_moe_tiny_config", "ernie_moe_base_config",

@@ -1,5 +1,8 @@
-"""``Linear`` and ``LayerNorm`` as paddle defines them (counterparts of
-``paddle_tpu/nn/layer/common.py`` and ``paddle_tpu/nn/layer/norm.py``).
+"""Torch-level ``Linear`` and ``LayerNorm`` with paddle's conventions, the
+``torch.nn.Module`` building blocks of the GPT and ERNIE-MoE models, the
+MoE layers and the engines (counterparts of
+``paddle_tpu/nn/layer/common.py`` and ``paddle_tpu/nn/layer/norm.py``; the
+paddle-level layers are :mod:`paddle_tpu_torch.nn`).
 
 ``Linear`` keeps paddle's ``[in_features, out_features]`` weight layout,
 so a JAX ``state_dict`` loads as it is and ``y = x @ W + b``.

@@ -2,15 +2,19 @@
 
 The clip classes take and return a list of ``(param, grad)`` pairs, as the
 optimizers hand them over; a pair whose grad is None, or whose parameter
-has ``need_clip = False``, passes unchanged. :func:`clip_grad_norm_`
-scales the ``.grad`` of the given parameters in place.
+has ``need_clip = False``, passes unchanged (the parameters may be torch
+tensors or the facade's, the gradients are torch tensors).
+:func:`clip_grad_norm_` scales the ``.grad`` of the given parameters in
+place; :func:`clip_by_norm` is the facade op.
 """
 from __future__ import annotations
 
 import torch
 
+from ..framework.tensor import Tensor
+
 __all__ = ["ClipGradBase", "ClipGradByValue", "ClipGradByNorm",
-           "ClipGradByGlobalNorm", "clip_grad_norm_"]
+           "ClipGradByGlobalNorm", "clip_grad_norm_", "clip_by_norm"]
 
 
 def _skip(p, g):
@@ -83,9 +87,10 @@ def clip_grad_norm_(parameters, max_norm, norm_type=2.0,
     them (``inf``: the largest |g|); returns ``total``.
     ``error_if_nonfinite`` raises where ``total`` is not finite (a host
     sync)."""
-    if isinstance(parameters, torch.Tensor):
+    if isinstance(parameters, (torch.Tensor, Tensor)):
         parameters = [parameters]
-    parameters = list(parameters)
+    parameters = [p._value if isinstance(p, Tensor) else p
+                  for p in parameters]
     grads = [p.grad for p in parameters if p.grad is not None]
     if not grads:
         return torch.zeros([])
@@ -102,3 +107,15 @@ def clip_grad_norm_(parameters, max_norm, norm_type=2.0,
         for g in grads:
             g.mul_(scale)
     return total
+
+
+def clip_by_norm(x, max_norm, name=None):
+    """``x`` scaled so that its L2 norm (in f32) is at most ``max_norm``."""
+    from ..framework.tape import apply
+
+    def f(v):
+        n = v.float().square().sum().sqrt()
+        scale = torch.where(n > max_norm, max_norm / n.clamp_min(1e-12), 1.0)
+        return (v.float() * scale).to(v.dtype)
+
+    return apply(f, x, op_name="clip_by_norm")

@@ -1,5 +1,14 @@
-"""Functionals (counterpart of ``paddle_tpu/nn/functional``): attention so
-far."""
-from .attention import scaled_dot_product_attention  # noqa: F401
+"""``paddle.nn.functional`` over the tensor facade (counterpart of
+``paddle_tpu/nn/functional``): activations, common functionals (linear,
+dropout, embedding, interpolate, ...), norms, losses and attention. The
+convolutions, poolings and the extras are not ported yet (``ROADMAP.md``,
+Queue 1)."""
+from .activation import *  # noqa: F401,F403
+from .common import *  # noqa: F401,F403
+from .norm import *  # noqa: F401,F403
+from .loss import *  # noqa: F401,F403
+from .attention import *  # noqa: F401,F403
+from . import activation, attention, common, loss, norm
 
-__all__ = ["scaled_dot_product_attention"]
+__all__ = (activation.__all__ + common.__all__ + norm.__all__ + loss.__all__
+           + attention.__all__)

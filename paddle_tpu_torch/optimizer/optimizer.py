@@ -21,19 +21,25 @@ it, reading lr from device memory on every replay. Every product of lr
 coeff``) is taken on the device in f32, as under the JAX step's jit.
 :meth:`Optimizer._init_state` makes the accumulators ahead of a capture.
 
-Parameter names. ``parameters`` may be a module, ``(name, tensor)`` pairs
-(``module.named_parameters()``) or bare tensors. The names are the
-qualified names of ``named_parameters()``; bare tensors take their index
-in the list. ``AdamW``'s ``apply_decay_param_fun`` is called with that
-name, where paddle passes its own unique names (``linear_0.w_0``), which
-the port's parameters do not have; with bare tensors it raises. The names
-also key ``state_dict`` (``"{name}_{accumulator}"``).
+Parameters. ``parameters`` may be a module, ``(name, tensor)`` pairs
+(``module.named_parameters()``), bare tensors, or the facade's: a
+:class:`paddle_tpu_torch.nn.Layer` or a list of its parameters
+(``layer.parameters()``). A facade parameter is updated through its torch
+leaf ``_value`` (in place, so it stays the same leaf), and reads
+``stop_gradient``/``trainable``, ``regularizer``, ``optimize_attr`` and
+``need_clip`` as paddle's do. The names: a facade parameter's ``name``
+(``linear_0.w_0``, as paddle and the JAX package name it); otherwise the
+qualified names of ``named_parameters()``, or the index in the list for
+bare tensors. ``AdamW``'s ``apply_decay_param_fun`` is called with that
+name; with bare torch tensors it raises. The names also key
+``state_dict`` (``"{name}_{accumulator}"``).
 """
 from __future__ import annotations
 
 import torch
 from torch import nn
 
+from ..framework.tensor import Tensor
 from .lr import LRScheduler
 
 __all__ = ["L1Decay", "L2Decay", "Optimizer", "SGD", "Momentum", "Adam",
@@ -51,16 +57,32 @@ class L1Decay:
 
 
 def _named(parameters):
-    """``(names, params, named)`` from a module, ``(name, tensor)`` pairs
-    or tensors; ``named`` says whether the names are qualified names."""
+    """``(names, params, named)`` from a module, a facade ``Layer``,
+    ``(name, tensor)`` pairs or tensors; ``named`` says whether the names
+    are names (not indices)."""
     if parameters is None:
         return None, None, False
     if isinstance(parameters, nn.Module):
         parameters = parameters.named_parameters()
+    elif hasattr(parameters, "named_sublayers"):        # a facade Layer
+        parameters = parameters.parameters()
     items = list(parameters)
     if items and isinstance(items[0], tuple):
         return [n for n, _ in items], [p for _, p in items], True
+    if items and all(isinstance(p, Tensor) and p.name for p in items):
+        return [p.name for p in items], items, True
     return [str(i) for i in range(len(items))], items, False
+
+
+def _leaf(p) -> torch.Tensor:
+    """The torch tensor the update writes: a facade parameter's leaf."""
+    return p._value if isinstance(p, Tensor) else p
+
+
+def _trainable(p) -> bool:
+    if isinstance(p, Tensor):
+        return not p.stop_gradient and getattr(p, "trainable", True)
+    return p.requires_grad and getattr(p, "trainable", True)
 
 
 class Optimizer:
@@ -154,9 +176,8 @@ class Optimizer:
     def _collect_params_grads(self):
         if self._parameter_list is None:
             raise ValueError("optimizer created without parameters")
-        return [(p, p.grad) for p in self._parameter_list
-                if p.requires_grad and getattr(p, "trainable", True)
-                and p.grad is not None]
+        return [(p, _leaf(p).grad) for p in self._parameter_list
+                if _trainable(p) and _leaf(p).grad is not None]
 
     @torch.no_grad()
     def step(self):
@@ -165,7 +186,7 @@ class Optimizer:
             return
         self._global_step += 1
         self._apply(params_grads,
-                    self._lr_tensor(params_grads[0][0].device))
+                    self._lr_tensor(_leaf(params_grads[0][0]).device))
 
     @torch.no_grad()
     def _apply(self, params_grads, lr):
@@ -180,9 +201,9 @@ class Optimizer:
             if r is None:
                 r = self._regularization
             if isinstance(r, L2Decay) and r.coeff:
-                g = g + r.coeff * p
+                g = g + r.coeff * _leaf(p)
             elif isinstance(r, L1Decay) and r.coeff:
-                g = g + r.coeff * torch.sign(p)
+                g = g + r.coeff * torch.sign(_leaf(p))
             reg.append((p, g))
         params_grads = reg
         if self._grad_clip is not None:
@@ -217,10 +238,11 @@ class Optimizer:
 
     def clear_grad(self, set_to_zero=False):
         for p in self._parameter_list or ():
-            if set_to_zero and p.grad is not None:
-                p.grad.zero_()
+            w = _leaf(p)
+            if set_to_zero and w.grad is not None:
+                w.grad.zero_()
             else:
-                p.grad = None
+                w.grad = None
 
     clear_gradients = clear_grad
 
@@ -240,7 +262,8 @@ class SGD(Optimizer):
                          name)
 
     def _update_param(self, p, g, lr):
-        p.copy_(p - lr * g.to(p.dtype))
+        w = _leaf(p)
+        w.copy_(w - lr * g.to(w.dtype))
 
 
 class Momentum(Optimizer):
@@ -253,15 +276,16 @@ class Momentum(Optimizer):
         self._use_nesterov = use_nesterov
 
     def _state(self, p):
-        return self._acc("velocity", p, lambda: torch.zeros_like(p))
+        return self._acc("velocity", p, lambda: torch.zeros_like(_leaf(p)))
 
     def _update_param(self, p, g, lr):
         v = self._state(p)
+        w = _leaf(p)
         v.copy_(self._momentum * v + g)
         if self._use_nesterov:
-            p.copy_(p - lr * (g + self._momentum * v))
+            w.copy_(w - lr * (g + self._momentum * v))
         else:
-            p.copy_(p - lr * v)
+            w.copy_(w - lr * v)
 
 
 class Adam(Optimizer):
@@ -274,10 +298,14 @@ class Adam(Optimizer):
         self._beta1, self._beta2, self._epsilon = beta1, beta2, epsilon
 
     def _state(self, p):
-        dt = torch.float32 if p.dtype in (torch.float16, torch.bfloat16) \
-            else p.dtype
-        zeros = lambda: torch.zeros(p.shape, dtype=dt, device=p.device)  # noqa: E731
-        ones = lambda: torch.ones((), dtype=dt, device=p.device)  # noqa: E731
+        w = _leaf(p)
+        dt = torch.float32 if w.dtype in (torch.float16, torch.bfloat16) \
+            else w.dtype
+        def zeros():
+            return torch.zeros(w.shape, dtype=dt, device=w.device)
+
+        def ones():
+            return torch.ones((), dtype=dt, device=w.device)
         return tuple(self._acc(name, p, init) for name, init in (
             ("moment1", zeros), ("moment2", zeros), ("beta1_pow", ones),
             ("beta2_pow", ones)))
@@ -292,7 +320,8 @@ class Adam(Optimizer):
         mhat = m / (1 - b1p)
         vhat = v / (1 - b2p)
         update = lr * mhat / (vhat.sqrt() + self._epsilon)
-        p.copy_(p - update.to(p.dtype))
+        w = _leaf(p)
+        w.copy_(w - update.to(w.dtype))
 
 
 class AdamW(Adam):
@@ -309,7 +338,7 @@ class AdamW(Adam):
         if apply_decay_param_fun is not None and not self._named:
             raise ValueError(
                 "apply_decay_param_fun needs parameter names: pass the "
-                "module or its named_parameters() as parameters")
+                "module, its named_parameters() or facade parameters")
         self._coeff = weight_decay if isinstance(weight_decay, float) else \
             getattr(weight_decay, "coeff", 0.01)
         self._apply_decay_param_fun = apply_decay_param_fun
@@ -326,5 +355,5 @@ class AdamW(Adam):
             key = ("keep", id(lr), decay)
             if key not in self._lr_products:
                 self._lr_products[key] = 1.0 - lr * decay
-            p.mul_(self._lr_products[key])
+            _leaf(p).mul_(self._lr_products[key])
         super()._update_param(p, g, lr)

@@ -51,7 +51,7 @@ from ..kernels.paged_attention import paged_attention_decode
 from ..models.ernie import (ErnieMoeConfig, ErnieMoeForPretraining,
                             stack_ernie_moe_weights)
 from ..models.gpt import sample_logits
-from ..nn import layer_norm
+from ..nn._torch_layers import layer_norm
 from .engine import (ServingEngine, _resolve_aot, _row_before, _to_device,
                      default_prefill_buckets)
 from .kv_pool import PagePool

@@ -1125,21 +1125,36 @@ def test_decode_wrapper_splits_from_shapes_and_counts_one_launch():
 
 # ------------------------------------------- attention kernels on wgmma
 
-def _kernels_run(fn, attempts=4):
-    """The names of the CUDA kernels ``fn`` launches, by the profiler;
-    profiled again while it records no device activity at all (it then
-    measured nothing)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    for _ in range(attempts):
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            fn()
-            torch.cuda.synchronize()
-        names = {e.name for e in prof.events()
-                 if e.device_type == DeviceType.CUDA}
-        if names:
-            break
+def _kernels_run(fn):
+    """The names of the CUDA kernels one call of ``fn`` launches (mangled):
+    the kernel nodes of a CUDA graph captured around the call, after one
+    call uncaptured, read from the graph's DOT dump. The driver lists every
+    node, so the names do not depend on what ran before; the profiler,
+    run after the file's other tests, has seen only some of the kernels."""
+    import tempfile
+    fn()
+    torch.cuda.synchronize()
+    try:                        # the captured graph kept for its dump
+        g = torch.cuda.CUDAGraph(keep_graph=True)
+    except TypeError:           # a PyTorch that keeps it in debug mode
+        g = torch.cuda.CUDAGraph()
+    g.enable_debug_mode()
+    with torch.cuda.graph(g):
+        fn()
+    g.replay()
+    torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = f"{tmp}/graph.dot"
+        g.debug_dump(path)
+        with open(path) as f:
+            dot = f.read()
+    del g
+    names = set()
+    for label in re.findall(r'label="([^"]*)"', dot):
+        label = label.replace("\\", "")
+        if "KERNEL" in label or "<<<" in label:
+            m = re.search(r"([^|{}]*?)\s*<<<", label)
+            names.add((m.group(1) if m else label).strip())
     return names
 
 
@@ -1184,8 +1199,8 @@ def test_wgmma_attention_at_every_head_dim(d):
     """The wgmma forward and dK/dV kernels at each head-dim instance (16,
     32 and 64 run the D = 64 one, columns past d zero-filled by TMA) and
     at masked d = 40 and 80, on fused-QKV views under GQA, against the
-    plain versions; the profiler shows the wgmma kernels ran (dQ stays on
-    mma.sync)."""
+    plain versions; the kernel nodes of a graph of one call show the wgmma
+    kernels ran (dQ stays on mma.sync)."""
     _cuda()
     q, k, v, do = _fused_qkv_views(2, 300, 4, 2, d, 81)
     assert tfa.kernel_route(q, k, v) == "wgmma"
@@ -1226,13 +1241,13 @@ def test_wgmma_attention_gqa_offsets_ragged(B, Sq, Sk, q_offset, nkv):
 def test_fwd_query_rows_matches_the_launch(B, N):
     """fwd_query_rows, given the card's SM count, names the query tile the
     C launch chose: 64 rows a consumer warpgroup, the second template
-    argument of the wgmma forward the profiler saw."""
+    argument of the wgmma forward in a graph of one call."""
     _cuda()
     q, k, v, _ = _fused_qkv_views(B, 1024, N, N, 128, 95)
     names = _kernels_run(lambda: tfa.flash_attention_fwd(q, k, v, True))
-    groups = {int(m.group(1)) for m in (
-        re.search(r"flash_fwd_wg_kernel<\d+, (\d+)>", n) for n in names)
-        if m}
+    groups = {int(m.group(1) or m.group(2)) for m in (
+        re.search(r"flash_fwd_wg_kernel(?:<\d+, ?(\d+)>|ILi\d+ELi(\d+)E)",
+                  n) for n in names) if m}
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     assert groups == {tfa.fwd_query_rows(B, N, 1024, sms) // 64}, names
 
@@ -1412,7 +1427,7 @@ def _ts_scaler_case():
     the second the scale is set to 2^127."""
     from paddle_tpu_torch.amp import GradScaler
     from paddle_tpu_torch.distributed import ParallelTrainStep
-    from paddle_tpu_torch.nn import Linear
+    from paddle_tpu_torch.nn._torch_layers import Linear
     from paddle_tpu_torch.optimizer import AdamW
     lin = Linear(6, 4, generator=torch.Generator("cuda").manual_seed(0))
     opt = AdamW(1e-3, parameters=lin.named_parameters())
@@ -1675,3 +1690,108 @@ def test_facade_on_cuda_matches_cpu():
         tplace._current_place = prev
     for a, b, tol in zip(on_card, on_cpu, [1e-5] * 5 + [2e-2]):
         np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=tol, atol=tol)
+
+
+# ------------------------------------------- BERT from paddle_tpu_torch.nn
+
+def _bert_tiny(seed, **kw):
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.models import bert as tbert
+    paddle.seed(seed)
+    return tbert.BertForPretraining(tbert.BertModel(
+        tbert.bert_tiny_config(**kw))).train()
+
+
+def _bert_step(model):
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.distributed.fleet import train_step
+    return train_step.ParallelTrainStep(
+        model, paddle.optimizer.AdamW(1e-3, parameters=model.parameters()),
+        lambda m, i, y: m.forward_with_mlm_loss(i, y))
+
+
+def _bert_batch(seed=0):
+    rng = np.random.default_rng(seed)
+    return tuple(rng.integers(0, 1024, (2, 64)).astype(np.int64)
+                 for _ in range(2))
+
+
+def _bert_card_cases():
+    """Tiny BERT (2 layers, B = 2, S = 64) built from paddle_tpu_torch.nn
+    through ParallelTrainStep on the card: captured against the eager
+    switch at dropout 0 (losses, parameters, flash launches a step), and
+    the masks of three replays at hidden dropout 0.2 (the facade's
+    generator registered with the graph)."""
+    from paddle_tpu_torch.distributed.fleet import train_step
+    out = {}
+    ids, labels = _bert_batch()
+    for how in ("captured", "eager"):
+        model = _bert_tiny(0)
+        step = _bert_step(model)
+        losses, counts = [], []
+        with train_step._eager_step() if how == "eager" \
+                else contextlib.nullcontext():
+            for _ in range(3):
+                c0 = _ts_counts()
+                losses.append(float(step(ids, labels)))
+                counts.append([a - b for a, b in zip(_ts_counts(), c0)])
+        out[how] = dict(losses=losses, counts=counts, params={
+            k: p._value.detach().cpu() for k, p in model.named_parameters()},
+            graphs=len(step.captured_signatures))
+    cap, eag = out.pop("captured"), out.pop("eager")
+    out["dropout0"] = dict(
+        losses=cap["losses"], eager_losses=eag["losses"],
+        param_diff=max((cap["params"][k] - v).abs().max().item()
+                       for k, v in eag["params"].items()),
+        counts=cap["counts"], eager_counts=eag["counts"],
+        graphs=cap["graphs"])
+    model = _bert_tiny(1, hidden_dropout_prob=0.2)
+    drop = model.bert.embeddings.dropout
+    probe = torch.zeros(2, 64, 64, dtype=torch.bool, device="cuda")
+
+    def keep_mask(layer, inputs, out):    # returns None: out stays
+        probe.copy_(out._value != 0)
+    drop.register_forward_post_hook(keep_mask)
+    step = _bert_step(model)
+    seen = []
+    for _ in range(4):              # the first call captures; 3 replays
+        step(ids, labels)
+        seen.append(probe.clone())
+    out["dropout_masks"] = dict(
+        kept=[m.float().mean().item() for m in seen[1:]],
+        differ=[bool((a != b).any()) for a, b in zip(seen[1:], seen[2:])],
+        graphs=len(step.captured_signatures))
+    return out
+
+
+@pytest.fixture(scope="module")
+def bert_card():
+    _cuda()
+    return _in_subprocess("_bert_card_cases")
+
+
+@pytest.mark.gpu
+def test_bert_train_step_captured_equals_eager(bert_card):
+    """Tiny BERT built from the ported nn through ParallelTrainStep at
+    dropout 0: the captured step's losses and parameters bit for bit the
+    eager switch's over 3 steps, one graph, and the flash forward, dQ and
+    dK/dV kernels 2/2/2 a step at 2 layers (attention dropout 0)."""
+    res = bert_card["dropout0"]
+    assert res["losses"] == res["eager_losses"]
+    assert res["param_diff"] == 0.0
+    assert res["losses"][-1] < res["losses"][0]
+    assert res["counts"] == [[2, 2, 2, 0, 0]] * 3 == res["eager_counts"]
+    assert res["graphs"] == 1
+
+
+@pytest.mark.gpu
+def test_bert_replays_draw_new_dropout_masks(bert_card):
+    """With hidden dropout 0.2 each replay draws new masks from the
+    facade's generator (registered with the graph): three replays, three
+    different embedding masks, each keeping 0.8 of its 8192 elements
+    within 4 sigma."""
+    res = bert_card["dropout_masks"]
+    assert res["graphs"] == 1
+    assert all(res["differ"])
+    sigma = (0.2 * 0.8 / (2 * 64 * 64)) ** 0.5
+    assert all(abs(k - 0.8) <= 4 * sigma for k in res["kept"]), res

@@ -32,6 +32,22 @@ _PROBE = textwrap.dedent("""
             "paddle_tpu_torch.distributed",
             "paddle_tpu_torch.distributed.fleet",
             "paddle_tpu_torch.distributed.fleet.train_step",
+            "paddle_tpu_torch.nn.initializer",
+            "paddle_tpu_torch.nn._torch_layers",
+            "paddle_tpu_torch.nn.layer",
+            "paddle_tpu_torch.nn.layer.layers",
+            "paddle_tpu_torch.nn.layer.container",
+            "paddle_tpu_torch.nn.layer.common",
+            "paddle_tpu_torch.nn.layer.activation",
+            "paddle_tpu_torch.nn.layer.norm",
+            "paddle_tpu_torch.nn.layer.loss",
+            "paddle_tpu_torch.nn.layer.transformer",
+            "paddle_tpu_torch.nn.functional.activation",
+            "paddle_tpu_torch.nn.functional.common",
+            "paddle_tpu_torch.nn.functional.norm",
+            "paddle_tpu_torch.nn.functional.loss",
+            "paddle_tpu_torch.models.bert",
+            "paddle_tpu_torch.models._encoder",
             } <= set(names), names
     import chip_smoke
     bad = sorted(m for m in sys.modules

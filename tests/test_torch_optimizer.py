@@ -18,7 +18,8 @@ from paddle_tpu.nn import clip as jclip
 from paddle_tpu_torch import optimizer as toptim
 from paddle_tpu_torch.incubate.distributed.models.moe import (
     ClipGradForMOEByGlobalNorm)
-from paddle_tpu_torch.nn import Linear, clip as tclip
+from paddle_tpu_torch.nn import clip as tclip
+from paddle_tpu_torch.nn._torch_layers import Linear
 from paddle_tpu_torch.optimizer import lr as tlr
 
 F32 = dict(rtol=1e-5, atol=1e-6)

@@ -34,7 +34,8 @@ from paddle_tpu_torch.distributed import ParallelTrainStep, fleet
 from paddle_tpu_torch.incubate.distributed.models.moe import (
     ClipGradForMOEByGlobalNorm, GShardGate)
 from paddle_tpu_torch.models import ernie as ternie
-from paddle_tpu_torch.nn import Linear, clip as tclip
+from paddle_tpu_torch.nn import clip as tclip
+from paddle_tpu_torch.nn._torch_layers import Linear
 from paddle_tpu_torch.optimizer import lr as tlr
 
 from test_torch_ernie_train import (LOSS_RTOL, PARAM_ATOL, _batch, _models,
