@@ -2,10 +2,10 @@
 
     python3 chip_smoke.py [--json-out PATH] [--parent ROOT]
 
-Sixteen phases, one result per line, in this order: build, tensor_api,
-flash, flash_bwd, paged, paged_prefill, int8, moe_dispatch, serving,
-serving_prefix, serving_int8, serving_moe, checkpoint, training,
-training_moe, training_bert:
+Seventeen phases, one result per line, in this order: build,
+tensor_api, flash, flash_bwd, paged, paged_prefill, int8, moe_dispatch,
+serving, serving_prefix, serving_int8, serving_moe, checkpoint, training,
+training_moe, training_bert, training_bert_static:
 
 1. device and build — the card's name and power limit, and the build of
    every CUDA kernel from ``paddle_tpu_torch/csrc`` with nvcc for sm_90a;
@@ -195,7 +195,27 @@ training_moe, training_bert:
     (the flash route): the same replays with rows 1-3 launched 12/12/12 a
     replay, captured = eager bit for bit over 5 steps with all dropout at
     0, and at 2 layers, B = 2, the loss and every gradient with the
-    kernels against the plain versions in f32 and bf16.
+    kernels against the plain versions in f32 and bf16;
+13. ``training_bert_static`` — BERT-base on the static path, as
+    ``bench_bert`` runs it: its build (``bench.py:534-549``) under
+    ``enable_static``, a ``program_guard`` and ``auto_cast(bf16)``
+    (``static.data`` ids and labels [16, 512] int64,
+    ``forward_with_mlm_loss``, ``AdamW(1e-4).minimize``), device-resident
+    feeds, ``Executor.run(..., return_numpy=False)``: one CUDA graph per
+    feed signature. (a) the published config (no kernel of the table,
+    held) and (b) attention dropout 0 (rows 1-3 12/12/12 a run): 2
+    warm-up runs, 10 timed runs with one sync (tokens/s, the device's span
+    a run between events, MFU, peak memory), host staging + launch with
+    the device idle, one profiled run, the first run, capture time, graphs
+    and pool bytes; checks: falling finite losses, no host sync in the
+    first run or a replay, one graph for the feed signature, a fetched
+    loss kept after the next run, and in (a) the embeddings' dropout
+    masks new every replay. Then static = dygraph: the program against
+    ``ParallelTrainStep``'s captured step from the same weights, batch
+    and draws at attention dropout 0, 3 runs (the program's second on
+    numpy feeds), every loss and trained parameter bit for bit, f32 at 2
+    layers and bf16 at full width; ``training_bert``'s tokens/s from the
+    same call beside it.
 
 Exits non-zero, without the final line, when CUDA is unavailable or any
 phase fails. The last line is ``{"ok": true, "device": {...}}``; the line
@@ -367,6 +387,9 @@ MOE_ATTN_SHAPE = (16, 512, 12, 64)
 BERT_TRAIN_B, BERT_TRAIN_S, BERT_TRAIN_WARMUP, BERT_TRAIN_STEPS = \
     16, 512, 2, 10
 BERT_GRAPH_STEPS = 5
+# BERT-base on the static path (bench_bert's literal build): the runs the
+# static program is held to ParallelTrainStep over, bit for bit
+BERT_STATIC_RUNS = 3
 
 
 _T0 = time.perf_counter()
@@ -4616,6 +4639,342 @@ def phase_training_bert(torch, np, res):
     res["training_bert_flash"] = b
 
 
+# ----------------------------------------------------------------- phase 17
+
+def _bert_static_build(seed, bf16=True, **cfg_kw):
+    """bench_bert's build (bench.py:534-549) as it is, on the port:
+    ``static.data`` ids and labels [B, S] int64, ``BertForPretraining(
+    BertModel(bert_base_config(**cfg_kw)))`` (its weights from
+    ``paddle.seed(seed)``), ``forward_with_mlm_loss`` and
+    ``AdamW(1e-4).minimize(loss)``, under ``enable_static``, a
+    ``program_guard`` and ``auto_cast(bf16)`` (off with ``bf16=False``).
+    Static mode stays on, as ``_timed_static_train`` keeps it through its
+    runs: the caller turns it off. Returns the program, the loss, the model
+    and the embeddings' dropout output (a variable the program can
+    fetch)."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch import amp, optimizer, static
+    from paddle_tpu_torch.models.bert import (BertForPretraining, BertModel,
+                                              bert_base_config)
+    cfg = bert_base_config(**cfg_kw)
+    B, S = BERT_TRAIN_B, BERT_TRAIN_S
+    paddle.seed(seed)
+    static.enable_static()
+    main = static.Program()
+    seen = []
+    with static.program_guard(main):
+        with amp.auto_cast(enable=bf16, dtype="bfloat16"):
+            ids = static.data("ids", [B, S], "int64")
+            labels = static.data("labels", [B, S], "int64")
+            model = BertForPretraining(BertModel(cfg))
+            hook = model.bert.embeddings.dropout.register_forward_post_hook(
+                lambda layer, inputs, out: seen.append(out))
+            loss = model.forward_with_mlm_loss(ids, labels)
+            hook.remove()
+            opt = optimizer.AdamW(learning_rate=1e-4,
+                                  parameters=model.parameters())
+            opt.minimize(loss)
+    return main, loss, model, seen[0]
+
+
+def _static_runs(torch, exe, main, feed, loss, n):
+    """``n`` runs of ``main`` with ``return_numpy=False``, each between CUDA
+    events, then one sync (bench.py's timed loop): the losses, the wall of
+    the whole loop, each run's host time (staging + launch), each run's
+    device span and launches."""
+    ev = lambda: torch.cuda.Event(enable_timing=True)    # noqa: E731
+    outs, issues, events, per_run = [], [], [], []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        c0 = _counts()
+        e0, e1 = ev(), ev()
+        e0.record()
+        t1 = time.perf_counter()
+        outs.append(exe.run(main, feed=feed, fetch_list=[loss],
+                            return_numpy=False)[0])
+        issues.append(time.perf_counter() - t1)
+        e1.record()
+        events.append((e0, e1))
+        per_run.append({k: v - c0[k] for k, v in _counts().items()})
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return ([float(o) for o in outs], wall, issues,
+            [a.elapsed_time(b) for a, b in events], per_run)
+
+
+def _bert_static_run(torch, np, res, label, **cfg_kw):
+    """BERT-base on the static path: bench_bert's program, device-resident
+    feeds, the first run (the eager step on a side stream, then the
+    capture) and one more warm-up, BERT_TRAIN_STEPS timed runs with one
+    sync, then the checks: finite falling losses, no host sync in the first
+    run or a replay, one graph for the feed signature, a fetched Tensor
+    kept after the next run; one profiled run. Static mode is on when it
+    returns (the caller turns it off)."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch import static
+    t_build = time.perf_counter()
+    main, loss, model, emb_drop = _bert_static_build(0, **cfg_kw)
+    build_s = time.perf_counter() - t_build
+    cfg = model.bert.config
+    B, S = BERT_TRAIN_B, BERT_TRAIN_S
+    ids, labels = (paddle.to_tensor(a) for a in _bert_np_batch(np, cfg))
+    feed = {"ids": ids, "labels": labels}
+    exe = static.Executor()
+    n_params = sum(p.size for p in model.parameters())
+
+    def run():
+        return exe.run(main, feed=feed, fetch_list=[loss],
+                       return_numpy=False)[0]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    first = []
+    t0 = time.perf_counter()
+    first_syncs = _syncs_in(torch, lambda: first.append(run()))
+    losses = [float(first[0])]
+    first_s = time.perf_counter() - t0
+    for _ in range(BERT_TRAIN_WARMUP - 1):
+        losses.append(float(run()))
+    _zero_counts()
+    timed, wall, issues, spans, per_run = _static_runs(
+        torch, exe, main, feed, loss, BERT_TRAIN_STEPS)
+    losses += timed
+    counts = _counts()
+    peak = torch.cuda.max_memory_allocated()
+    if not all(math.isfinite(x) for x in timed) or timed[-1] >= timed[0]:
+        raise AssertionError(f"training_bert_static {label} losses not "
+                             f"finite or not falling: {losses}")
+    replay_syncs = _syncs_in(torch, run)
+    if first_syncs or replay_syncs:
+        raise AssertionError(f"training_bert_static {label} host syncs: "
+                             f"first run {first_syncs}, replay "
+                             f"{replay_syncs}")
+    graphs = exe.graphs(main)
+    if len(graphs) != 1:
+        raise AssertionError(f"training_bert_static {label}: {len(graphs)} "
+                             f"graphs for one feed signature: {graphs}")
+    r1 = run()
+    v1 = float(r1)
+    r2 = run()
+    v2 = float(r2)
+    kept = float(r1) == v1 and v2 != v1 and \
+        r1._value.data_ptr() != r2._value.data_ptr()
+    if not kept:
+        raise AssertionError(f"training_bert_static {label}: the loss "
+                             f"fetched at one run reads {float(r1)} after "
+                             f"the next (it was {v1}; the next {v2})")
+    # staging + launch alone: runs issued with the device idle (in the
+    # timed loop a run's staging waits for the pinned buffer's last copy,
+    # which sits behind the previous replay)
+    idle = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        run()
+        idle.append(time.perf_counter() - t1)
+    torch.cuda.synchronize()
+    fpt, n_mm = _bert_flops_per_token(cfg, S)
+    tokens_per_s = B * S * BERT_TRAIN_STEPS / wall
+    e2e = dict(tokens_per_s=tokens_per_s,
+               step_p50_ms=_pct(spans, 0.5),
+               device_span_ms=spans,
+               host_issue_p50_ms=_pct(idle, 0.5) * 1e3,
+               host_issue_ms=[x * 1e3 for x in idle],
+               host_in_loop_p50_ms=_pct(issues, 0.5) * 1e3,
+               host_in_loop_ms=[x * 1e3 for x in issues],
+               timed_wall_s=wall,
+               mfu=tokens_per_s * fpt / PEAK_FLOPS["bfloat16"],
+               flops_per_token=fpt, n_matmul_params=n_mm,
+               n_params=n_params, max_memory_allocated_bytes=peak,
+               build_s=build_s, n_nodes=len(main._nodes),
+               first_call_s=first_s, capture_s=exe.capture_s,
+               graphs=len(graphs), pool_bytes=exe.graph_pool_bytes(),
+               losses=losses, host_syncs_first_call=len(first_syncs),
+               host_syncs_replay=len(replay_syncs), launches=counts,
+               launches_per_step=per_run[0], per_step=per_run,
+               fetch_kept=dict(run1=v1, run1_after_run2=float(r1), run2=v2),
+               config=dict(cfg.__dict__), batch=[B, S])
+    e2e.update(_bert_profile(torch, lambda: float(run())))
+    kw_text = ", ".join(f"{k}={v}" for k, v in cfg_kw.items())
+    _log(f"training_bert_static {label}: bench_bert's program (bench.py:534-"
+         f"549) at bert_base_config({kw_text}): {len(main._nodes)} recorded "
+         f"nodes (built in "
+         f"{build_s:.2f} s), {n_params} f32 parameters, B={B} S={S}, "
+         f"auto_cast bf16 at record time, AdamW(1e-4).minimize, "
+         f"device-resident feeds; Executor: first run (eager step + capture)"
+         f" {first_s * 1e3:.1f} ms, capture {exe.capture_s * 1e3:.1f} ms, "
+         f"graphs {len(graphs)} for the feed signature, pool "
+         f"{e2e['pool_bytes']} bytes, host syncs in the first run "
+         f"{len(first_syncs)}, in a replay {len(replay_syncs)}; a fetched "
+         f"loss kept after the next run ({v1:.6f}, then {v2:.6f})")
+    _log(f"training_bert_static {label}: {BERT_TRAIN_STEPS} timed runs, one "
+         f"sync: {tokens_per_s:.1f} tokens/s (wall {wall * 1e3:.2f} ms), "
+         f"device span p50 {e2e['step_p50_ms']:.2f} ms (runs "
+         f"{', '.join(f'{x:.2f}' for x in spans)}), host stage + launch p50 "
+         f"{e2e['host_issue_p50_ms']:.3f} ms with the device idle (a run's "
+         f"host time in the loop p50 {e2e['host_in_loop_p50_ms']:.2f} ms: "
+         f"it waits behind the previous replay), MFU {e2e['mfu']:.4f} "
+         f"({fpt / 1e9:.4f} GFLOP/token), peak memory {peak} bytes; on "
+         f"{res.get('nvidia_smi')}")
+    _log(f"training_bert_static {label} losses (first run, warm-up, timed): "
+         f"{', '.join(f'{x:.6f}' for x in losses)}; launches per run "
+         f"{per_run[0]}")
+    _log_profile(f"one training_bert_static {label} run", e2e)
+    return e2e, exe, main, loss, emb_drop, feed
+
+
+def _bert_static_masks(torch, exe, main, loss, emb_drop, feed, p):
+    """Three runs fetching the embeddings' dropout output too (a fetch list
+    of its own: its first run captures a second graph): each run's kept
+    share within 3 sigma of 1 - p, and the masks of the two replays
+    differ."""
+    shares, masks = [], []
+    for _ in range(3):
+        _, h = exe.run(main, feed=feed, fetch_list=[loss, emb_drop],
+                       return_numpy=False)
+        m = h._value != 0
+        shares.append(m.float().mean().item())
+        masks.append(m)
+    n = masks[0].numel()
+    sigma = math.sqrt(p * (1 - p) / n)
+    differ = int((masks[1] != masks[2]).sum().item())
+    ok = all(abs(s - (1 - p)) <= 3 * sigma for s in shares) and differ > 0
+    _log(f"training_bert_static (a) the embeddings' dropout over three runs "
+         f"(the first captures the fetch list's graph): kept shares "
+         f"{', '.join(f'{s:.6f}' for s in shares)} of {n} elements (want "
+         f"{1 - p} within 3 sigma = {3 * sigma:.2e}); the two replays' masks "
+         f"differ in {differ} elements {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("training_bert_static dropout masks wrong "
+                             "under replay")
+    return dict(kept_share=shares, sigma=sigma, elements=n,
+                mask_elements_differing=differ, graphs=len(exe.graphs(main)))
+
+
+def _bert_static_vs_step(torch, np, dt, **cfg_kw):
+    """Static = dygraph: from the same weights (``paddle.seed(5)``), batch
+    and dropout draws (``paddle.seed(11)`` before the first step), at
+    attention dropout 0, BERT_STATIC_RUNS runs of bench_bert's program
+    against as many calls of ParallelTrainStep's captured step on the same
+    model (the loss_fn under the same auto_cast): every loss and every
+    parameter the program trains, bit for bit. The program's second run
+    takes numpy feeds (staged through pinned memory), the others device
+    tensors. The pooler, which the MLM loss does not read, is no parameter
+    of the program (as in the JAX Executor); ParallelTrainStep's AdamW
+    decays it."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch import static
+    from paddle_tpu_torch.distributed import ParallelTrainStep
+    bf16 = dt == "bfloat16"
+    cfg_kw = dict(cfg_kw, attention_probs_dropout_prob=0.0)
+    model = _bert_model(5, **cfg_kw)
+    cfg = model.bert.config
+    ids_np, labels_np = _bert_np_batch(np, cfg)
+    ids, labels = paddle.to_tensor(ids_np), paddle.to_tensor(labels_np)
+    loss_fn = _bert_loss_bf16 if bf16 else \
+        (lambda m, i, y: m.forward_with_mlm_loss(i, y))
+    step = ParallelTrainStep(model, paddle.optimizer.AdamW(
+        learning_rate=1e-4, parameters=model.parameters()), loss_fn)
+    paddle.seed(11)
+    _zero_counts()
+    step_losses = [float(step(ids, labels)) for _ in range(BERT_STATIC_RUNS)]
+    step_counts = _counts()
+    step_params = {n: p._value.detach().clone()
+                   for n, p in model.named_parameters()}
+    del step, model
+    torch.cuda.empty_cache()
+    main, loss, smodel, _ = _bert_static_build(5, bf16=bf16, **cfg_kw)
+    try:
+        init = {n: p._value.detach().clone()
+                for n, p in smodel.named_parameters()}
+        exe = static.Executor()
+        paddle.seed(11)
+        _zero_counts()
+        losses = []
+        for i in range(BERT_STATIC_RUNS):
+            feed = {"ids": ids_np, "labels": labels_np} if i == 1 \
+                else {"ids": ids, "labels": labels}
+            losses.append(float(exe.run(main, feed=feed, fetch_list=[loss],
+                                        return_numpy=False)[0]))
+        counts = _counts()
+        graphs = len(exe.graphs(main))
+    finally:
+        static.disable_static()
+    trained, untouched = {}, []
+    for n, p in smodel.named_parameters():
+        if torch.equal(p._value, init[n]):
+            untouched.append(n)
+        else:
+            trained[n] = (p._value.float() - step_params[n].float()).abs() \
+                .max().item()
+    worst = max(trained.items(), key=lambda kv: kv[1])
+    loss_diff = max(abs(a - b) for a, b in zip(losses, step_losses))
+    same = losses == step_losses and worst[1] == 0.0 and graphs == 1
+    L = cfg.num_hidden_layers
+    want = dict(flash=L * BERT_STATIC_RUNS, flash_bwd_dq=L * BERT_STATIC_RUNS,
+                flash_bwd_dkv=L * BERT_STATIC_RUNS)
+    _check_counts(f"training_bert_static {dt} static runs", counts, want)
+    _check_counts(f"training_bert_static {dt} ParallelTrainStep calls",
+                  step_counts, want)
+    _log(f"training_bert_static static = dygraph, {dt}, {L} layers, "
+         f"attention dropout 0, hidden {cfg.hidden_dropout_prob}: "
+         f"{BERT_STATIC_RUNS} runs (the second on numpy feeds) losses "
+         f"{losses} vs ParallelTrainStep {step_losses} (max |diff| "
+         f"{loss_diff:.3e}); {len(trained)} trained parameters max |diff| "
+         f"{worst[1]:.3e} ({worst[0]}); untouched by the program: "
+         f"{untouched}; graphs {graphs}: "
+         f"{'bit-equal' if same else 'DIFFER'}")
+    if not same:
+        raise AssertionError(f"training_bert_static {dt}: the static program "
+                             f"differs from ParallelTrainStep")
+    return dict(losses=losses, step_losses=step_losses,
+                max_abs_loss_diff=loss_diff, max_abs_param_diff=worst[1],
+                worst_param=worst[0], n_trained=len(trained),
+                untouched=untouched, graphs=graphs, launches=counts,
+                equal=same)
+
+
+def phase_training_bert_static(torch, np, res):
+    from paddle_tpu_torch import static
+    # (a) the published config: attention dropout 0.1, the dense attention,
+    # no kernel launch
+    try:
+        a, exe, main, loss, emb_drop, feed = _bert_static_run(
+            torch, np, res, "(a)")
+        _check_counts("training_bert_static (a) timed runs", a["launches"],
+                      {})
+        a["dropout"] = _bert_static_masks(
+            torch, exe, main, loss, emb_drop, feed,
+            a["config"]["hidden_dropout_prob"])
+    finally:
+        static.disable_static()
+    del exe, main, loss, emb_drop, feed
+    torch.cuda.empty_cache()
+    res["training_bert_static"] = a
+    # (b) attention dropout 0: the flash route, rows 1-3 12/12/12 a run
+    try:
+        b, exe, main, loss, _, feed = _bert_static_run(
+            torch, np, res, "(b)", attention_probs_dropout_prob=0.0)
+    finally:
+        static.disable_static()
+    del exe, main, loss, feed
+    torch.cuda.empty_cache()
+    L = b["config"]["num_hidden_layers"]
+    for i, got in enumerate(b["per_step"]):
+        _check_counts(f"training_bert_static (b) run {i}", got,
+                      dict(flash=L, flash_bwd_dq=L, flash_bwd_dkv=L))
+    res["training_bert_static_flash"] = b
+    dyn_a = res.get("training_bert_captured", {}).get("tokens_per_s")
+    dyn_b = res.get("training_bert_flash", {}).get("tokens_per_s")
+    _log(f"training_bert_static tokens/s: (a) {a['tokens_per_s']:.1f} "
+         f"(training_bert's captured ParallelTrainStep in this call: "
+         f"{dyn_a}), (b) {b['tokens_per_s']:.1f} (training_bert: {dyn_b})")
+    b["static_vs_step"] = {}
+    for dt, kw in (("float32", dict(num_hidden_layers=2)), ("bfloat16", {})):
+        b["static_vs_step"][dt] = _bert_static_vs_step(torch, np, dt, **kw)
+        torch.cuda.empty_cache()
+
+
 # --------------------------------------------------------------------- main
 
 def main(argv=None) -> int:
@@ -4665,7 +5024,9 @@ def main(argv=None) -> int:
               ("checkpoint", lambda: phase_checkpoint(torch, np, res)),
               ("training", lambda: phase_training(torch, np, res)),
               ("training_moe", lambda: phase_training_moe(torch, np, res)),
-              ("training_bert", lambda: phase_training_bert(torch, np, res))]
+              ("training_bert", lambda: phase_training_bert(torch, np, res)),
+              ("training_bert_static",
+               lambda: phase_training_bert_static(torch, np, res))]
     for name, fn in phases:
         t0 = time.perf_counter()
         try:
@@ -4730,6 +5091,11 @@ def main(argv=None) -> int:
     for key in ("flash", "flash_bwd_dq", "flash_bwd_dkv"):
         res[key]["launches_by_path"]["training_bert"] = \
             res["training_bert_flash"]["launches"][key]
+    # training_bert_static: part (b)'s 10 timed runs of bench_bert's static
+    # program (attention dropout 0); part (a) launches none, held
+    for key in ("flash", "flash_bwd_dq", "flash_bwd_dkv"):
+        res[key]["launches_by_path"]["training_bert_static"] = \
+            res["training_bert_static_flash"]["launches"][key]
     # checkpoint: the counted runs of the engines from_checkpoint built
     # (f32, captured), summed over the phase's GPT and MoE cases
     for key in ("flash", "paged", "int8", "moe_dispatch", "moe_combine"):

@@ -9,8 +9,9 @@ is built (the CUDA kernels compile at their first launch, see
 :mod:`paddle_tpu_torch.kernels._build`), and no RNG state is seeded.
 
 Ported so far, GPT serving and training, ERNIE-MoE serving and
-pretraining, paddle's tensor facade and ``paddle.nn`` over it, and BERT
-built from it (``ROADMAP.md`` lists the rest):
+pretraining, paddle's tensor facade and ``paddle.nn`` over it, BERT built
+from it, and ``paddle.static`` over the facade (``ROADMAP.md`` lists the
+rest):
 
 - :mod:`.framework` — ``Tensor``/``Parameter`` over ``torch.Tensor``,
   ``to_tensor``, dtypes, places (``set_device``), autograd on torch's
@@ -20,6 +21,12 @@ built from it (``ROADMAP.md`` lists the rest):
   top level (``import paddle_tpu_torch as paddle``);
 - :mod:`.nn` — ``Layer``, the layers, ``functional``, ``initializer`` and
   the clips over the facade; :mod:`.models.bert` — BERT built from them;
+- :mod:`.static` — ``Program``, ``Executor``, ``data``, ``program_guard``,
+  ``gradients``, ``static.nn`` and program (de)serialization: the facade's
+  ops record under ``enable_static()`` (also at the top level) and the
+  Executor runs a program as one CUDA graph per feed signature on the card
+  (eagerly on the CPU), with ``Optimizer.minimize`` and ``auto_cast``
+  fixed at record time; :mod:`.jit` — ``InputSpec`` alone so far;
 
 - :mod:`.models.gpt` — the GPT model family as ``nn.Module``s and the
   training step (one CUDA graph per batch shape on the card);
@@ -62,3 +69,5 @@ from .ops import *  # noqa: E402,F401,F403  (the paddle.* op surface)
 from . import ops  # noqa: E402,F401
 from . import amp, nn, optimizer  # noqa: E402,F401
 from .nn.layer.layers import ParamAttr  # noqa: E402,F401
+from . import jit, static  # noqa: E402,F401
+from .static import enable_static, disable_static  # noqa: E402,F401

@@ -18,8 +18,8 @@ import contextlib
 
 import torch
 
-__all__ = ["auto_cast", "amp_guard", "amp_cast", "current_amp_state",
-           "WHITE_LIST", "BLACK_LIST"]
+__all__ = ["auto_cast", "amp_guard", "amp_cast", "cast_rule",
+           "cast_by_rule", "current_amp_state", "WHITE_LIST", "BLACK_LIST"]
 
 # the JAX package's O1 lists (paddle's imperative/amp_auto_cast.cc)
 WHITE_LIST = {
@@ -87,24 +87,40 @@ def _entered(state):
         _state = saved
 
 
+def cast_rule(op_name):
+    """What the active ``auto_cast`` does to the inputs of op ``op_name``:
+    ``("white", low)`` (float32 inputs to ``low``), ``("black", low)``
+    (``low`` inputs to float32), or None. A static program fixes this at
+    record time (:class:`paddle_tpu_torch.framework.tape.AmpWrappedOp`)."""
+    st = _state
+    if not st.enable:
+        return None
+    black = op_name in BLACK_LIST or op_name in st.custom_black
+    white = (op_name in WHITE_LIST or op_name in st.custom_white) \
+        and op_name not in st.custom_black
+    if white:
+        return "white", _DTYPES[st.dtype]
+    if black:
+        return "black", _DTYPES[st.dtype]
+    return None
+
+
+def cast_by_rule(rule, tensors):
+    """``tensors`` cast by a :func:`cast_rule` (None casts nothing);
+    ``None`` and non-float inputs unchanged. Returns a tuple."""
+    if rule is None:
+        return tuple(tensors)
+    mode, low = rule
+    src, dst = (torch.float32, low) if mode == "white" \
+        else (low, torch.float32)
+    return tuple(t.to(dst) if isinstance(t, torch.Tensor) and t.dtype == src
+                 else t for t in tensors)
+
+
 def amp_cast(op_name, *tensors):
     """The inputs of op ``op_name`` as the JAX tape hands them to it: under
     an active ``auto_cast``, float32 tensors cast to the low dtype for a
     white-list op, low-dtype tensors cast to float32 for a black-list op;
     otherwise (and for ``None`` and non-float inputs) unchanged. Returns a
     tuple."""
-    st = _state
-    if not st.enable:
-        return tensors
-    black = op_name in BLACK_LIST or op_name in st.custom_black
-    white = (op_name in WHITE_LIST or op_name in st.custom_white) \
-        and op_name not in st.custom_black
-    low = _DTYPES[st.dtype]
-    if white:
-        src, dst = torch.float32, low
-    elif black:
-        src, dst = low, torch.float32
-    else:
-        return tensors
-    return tuple(t.to(dst) if t is not None and t.dtype == src else t
-                 for t in tensors)
+    return cast_by_rule(cast_rule(op_name), tensors)

@@ -50,16 +50,13 @@ are not ported either.
 """
 from __future__ import annotations
 
-import time
 from collections.abc import Mapping
 
 import numpy as np
 import torch
 
 from ...framework import random as random_mod
-from ...framework.graphs import (StagedInputs, add_counts, capturing_on,
-                                 counted, eager_step, no_gc, pool_bytes,
-                                 sync_is_error)
+from ...framework.graphs import CapturedSteps, capturing_on, eager_step
 from ...framework.tensor import Tensor
 from ...nn.layer.layers import Layer
 from ...optimizer.lr import LRScheduler
@@ -120,16 +117,6 @@ def _detached(v):
     return _leaf(v).detach().clone()
 
 
-class _StepGraph:
-    """One batch signature's captured step: the graph, its staged inputs,
-    its outputs (overwritten by every replay) and the launches a replay
-    stands for."""
-
-    def __init__(self, graph, inputs, loss, found_inf, counts):
-        self.graph, self.inputs = graph, inputs
-        self.loss, self.found_inf, self.counts = loss, found_inf, counts
-
-
 class ParallelTrainStep:
     """Build once per (model, optimizer, loss_fn); call with batches."""
 
@@ -173,10 +160,8 @@ class ParallelTrainStep:
                              f"hold: {names}")
         self._device = _leaf(self._params[0]).device
         optimizer._init_state(self._params)
-        self._graphs = {}             # batch signature -> _StepGraph
-        self._pool = None
+        self._steps = CapturedSteps(self._device)
         self._generators = _generators(model)
-        self.capture_s = 0.0          # wall time of the captures
 
     # ------------------------------------------------------- checkpointing
     def sync_optimizer_state(self):
@@ -309,56 +294,20 @@ class ParallelTrainStep:
     train_batch = __call__
 
     def _captured(self, batch, lr, scale):
-        key = tuple((tuple(b.shape), b.dtype) for b in batch)
-        graph = self._graphs.get(key)
-        if graph is None:
-            return self._capture(key, batch, lr, scale)
-        graph.inputs.stage(batch, (lr, scale))
-        graph.graph.replay()
-        add_counts(graph.counts)
-        return graph.loss.clone(), graph.found_inf
-
-    def _capture(self, key, batch, lr, scale):
-        """This call's step, run eagerly on a side stream (it primes the
-        allocator, cuBLAS and the kernel library, counts its launches as
-        any step does, and raises on a host sync), then captured as the
-        graph of ``key``: the capture records the same work and runs none
-        of it, so the state moves by one step. Returns the step's loss and
-        ``found_inf``."""
-        dev = self._device
-        inputs = StagedInputs(key, 2, dev)
-        inputs.stage(batch, (lr, scale))
-        args = (inputs.tensors, *inputs.scalars)
-        stream = torch.cuda.current_stream(dev)
-        side = torch.cuda.Stream(dev)
-        side.wait_stream(stream)
-        with torch.cuda.stream(side), sync_is_error():
-            loss, found_inf = self._pure_step(*args)
-        stream.wait_stream(side)
-        for t in (loss, found_inf):
-            if t is not None:
-                t.record_stream(stream)
-        t0 = time.perf_counter()
-        if self._pool is None:
-            self._pool = torch.cuda.graph_pool_handle()
-        graph = torch.cuda.CUDAGraph()
-        for gen in self._generators + [random_mod.generator(dev)]:
-            graph.register_generator_state(gen)
-
-        def capture():
-            with no_gc(), torch.cuda.graph(graph, pool=self._pool):
-                return self._pure_step(*args)
-        (out, out_inf), counts = counted(capture)
-        self._graphs[key] = _StepGraph(graph, inputs, out, out_inf, counts)
-        self.capture_s += time.perf_counter() - t0
-        return loss, found_inf
+        gens = self._generators + [random_mod.generator(self._device)]
+        return self._steps(self._pure_step, batch, (lr, scale), gens)
 
     @property
     def captured_signatures(self):
         """The batch signatures that have a captured graph."""
-        return list(self._graphs)
+        return self._steps.signatures
+
+    @property
+    def capture_s(self):
+        """Wall time of the captures."""
+        return self._steps.capture_s
 
     def graph_pool_bytes(self):
         """Device bytes the step's graphs' pool holds (0 with none
         captured; None where the allocator does not name pools)."""
-        return 0 if self._pool is None else pool_bytes(self._pool)
+        return self._steps.pool_bytes()

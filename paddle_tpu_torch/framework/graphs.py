@@ -4,8 +4,9 @@ training step's inputs staged through pinned memory, host syncs made
 errors, and a pool's size. The serving engines' bucket programs
 (:mod:`paddle_tpu_torch.serving.graphs`) and the training steps
 (:class:`paddle_tpu_torch.models.gpt.GPTHybridTrainStep`,
-:class:`paddle_tpu_torch.distributed.fleet.ParallelTrainStep`) capture
-with these.
+:class:`paddle_tpu_torch.distributed.fleet.ParallelTrainStep`) and the
+static :class:`paddle_tpu_torch.static.Executor` capture with these; the
+last two share :class:`CapturedSteps`.
 
 Launch accounting: the kernel wrappers count their launches in Python, and
 a replay runs no Python. So each graph records, at capture, what the
@@ -18,6 +19,7 @@ from __future__ import annotations
 import contextlib
 import gc
 import math
+import time
 import warnings
 
 import numpy as np
@@ -28,7 +30,7 @@ from ..kernels import flash_attention, int8_matmul, moe_dispatch, \
 
 __all__ = ["read_counts", "add_counts", "counted", "no_gc", "unpack",
            "pool_bytes", "sync_is_error", "StagedInputs", "eager_step",
-           "capturing_on"]
+           "capturing_on", "CapturedSteps"]
 
 _KERNEL_MODULES = (flash_attention, paged_attention, int8_matmul,
                    moe_dispatch)
@@ -183,3 +185,93 @@ class StagedInputs:
         self._copied.record()
         for view, value in on_device:
             view.copy_(value, non_blocking=True)
+
+
+class _StepGraph:
+    """One input signature's captured step: the graph, its staged inputs,
+    its outputs (overwritten by every replay) and the launches a replay
+    stands for."""
+
+    def __init__(self, graph, inputs, outputs, counts):
+        self.graph, self.inputs = graph, inputs
+        self.outputs, self.counts = outputs, counts
+
+
+class CapturedSteps:
+    """A step function on ``device`` captured as one CUDA graph per input
+    signature and replayed (what ``ParallelTrainStep`` and the static
+    ``Executor`` run on the card).
+
+    ``step(tensors, *scalars)`` takes the inputs as device tensors and the
+    scalars as 0-d f32 device tensors, and returns a tuple of tensors (or
+    None). :meth:`__call__` with a signature it has not seen runs the step
+    eagerly on a side stream, where a host sync raises (it primes the
+    allocator, cuBLAS and the kernel library, and counts its launches as
+    any call does), then captures it in the one memory pool, with every
+    generator given registered, so each replay draws new numbers as an
+    eager call would: the capture records the same work and runs none of
+    it, so the state moves by one call. Later calls stage the inputs and
+    scalars through one pinned buffer (:class:`StagedInputs`) and replay.
+    A capture that fails raises; nothing falls back. The outputs returned
+    are copies that no later call overwrites."""
+
+    def __init__(self, device):
+        self.device = device
+        self._graphs = {}             # signature -> _StepGraph
+        self._pool = None
+        self.capture_s = 0.0          # wall time of the captures
+
+    @staticmethod
+    def signature(values):
+        """The signature of inputs (each tensor's or array's shape and
+        dtype)."""
+        return tuple((tuple(v.shape), v.dtype) for v in values)
+
+    def __call__(self, step, values, scalars, generators=()):
+        key = self.signature(values)
+        graph = self._graphs.get(key)
+        if graph is None:
+            return self._capture(key, step, values, scalars, generators)
+        graph.inputs.stage(values, scalars)
+        graph.graph.replay()
+        add_counts(graph.counts)
+        return tuple(None if o is None else o.clone() for o in graph.outputs)
+
+    def _capture(self, key, step, values, scalars, generators):
+        dev = self.device
+        inputs = StagedInputs(key, len(scalars), dev)
+        inputs.stage(values, scalars)
+        args = (inputs.tensors, *inputs.scalars)
+        stream = torch.cuda.current_stream(dev)
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(stream)
+        with torch.cuda.stream(side), sync_is_error():
+            outs = step(*args)
+        stream.wait_stream(side)
+        for t in outs:
+            if t is not None:
+                t.record_stream(stream)
+        t0 = time.perf_counter()
+        if self._pool is None:
+            self._pool = torch.cuda.graph_pool_handle()
+        graph = torch.cuda.CUDAGraph()
+        for gen in generators:
+            graph.register_generator_state(gen)
+
+        def capture():
+            with no_gc(), torch.cuda.graph(graph, pool=self._pool):
+                return step(*args)
+        graph_outs, counts = counted(capture)
+        self._graphs[key] = _StepGraph(graph, inputs, graph_outs, counts)
+        self.capture_s += time.perf_counter() - t0
+        return outs
+
+    @property
+    def signatures(self):
+        """The input signatures that have a captured graph."""
+        return list(self._graphs)
+
+    def pool_bytes(self):
+        """Device bytes the graphs' pool holds (0 with none captured; None
+        where the allocator does not name pools)."""
+        return 0 if self._pool is None else pool_bytes(self._pool)

@@ -39,8 +39,12 @@ def make_generator(seed: int, device=None) -> torch.Generator:
 def generator(device: torch.device) -> torch.Generator:
     """The generator the facade's random ops on ``device`` draw from: the
     innermost ``rng_guard``'s when one is active on that device type, else
-    the device's own, made from the current seed at first use."""
+    the device's own, made from the current seed at first use. None for
+    the ``meta`` device: a static program records its ops on meta tensors
+    (shapes only), and a draw there takes no number from any generator."""
     dev = torch.device(device)
+    if dev.type == "meta":
+        return None
     if dev.type == "cuda" and dev.index is None:
         dev = resolve_device(dev)
     for gen in reversed(_guards):

@@ -20,21 +20,30 @@ this module keeps paddle's semantics on top of it:
 - grad mode is torch's (``no_grad``, ``enable_grad``,
   ``set_grad_enabled``, ``is_grad_enabled``).
 
-The JAX tape's static-capture branch (``_lazy``, ``_static_capture``) and
-its analysis hook are not ported (``ROADMAP.md``, Queue 1 items 10, 11).
+Static capture (the JAX tape's ``_static_capture`` branch): under
+``paddle_tpu_torch.static.enable_static()``, an op with a lazy input (a
+``static.data`` placeholder or another recorded op's output), or one that
+consumes a ``Parameter``, records a node into the current ``Program``
+(:func:`paddle_tpu_torch.static.program.make_lazy_output`) instead of
+running. The node fixes at record time what eager ``apply`` decides when
+it runs: the ``auto_cast`` rule (:class:`AmpWrappedOp`, so a program built
+under ``auto_cast`` and run outside it keeps its casts) and which inputs
+``stop_gradient`` detaches. The analysis hook is not ported
+(``ROADMAP.md``, Queue 1 item 11).
 """
 from __future__ import annotations
 
+import sys
 import warnings
 from typing import Callable
 
 import torch
 
-from ..amp.auto_cast import amp_cast, current_amp_state
+from ..amp.auto_cast import cast_by_rule, cast_rule
 from . import flags as flags_mod
 
 __all__ = ["apply", "backward", "grad", "no_grad", "enable_grad",
-           "set_grad_enabled", "is_grad_enabled"]
+           "set_grad_enabled", "is_grad_enabled", "AmpWrappedOp"]
 
 
 # ---------------------------------------------------------------------------
@@ -77,13 +86,51 @@ def _check_nan_inf(name, outs):
             warnings.warn(msg)
 
 
-def _input_value(a, op_name, amp_on):
+def _input_value(a, rule):
     v = a._value
     if a.stop_gradient and v.requires_grad:
         v = v.detach()
-    if amp_on:
-        (v,) = amp_cast(op_name, v)
+    if rule is not None:
+        (v,) = cast_by_rule(rule, (v,))
     return v
+
+
+class AmpWrappedOp:
+    """An op with the ``auto_cast`` rule of its record time folded in:
+    ``mode`` "white" casts float32 inputs to ``low``, "black" casts
+    ``low`` inputs to float32, as :func:`apply` casts them when it runs
+    the op. A plain object (fn, mode, low), not a closure, so that
+    ``static.serde`` can write it."""
+
+    def __init__(self, fn, mode, low):
+        self.fn = fn
+        self.mode = mode
+        self.low = low
+        self.__name__ = getattr(fn, "__name__", "op")
+
+    def __call__(self, *vals, **kw):
+        return self.fn(*cast_by_rule((self.mode, self.low), vals), **kw)
+
+
+# static mode and lazy tensors exist only once this module is imported and
+# has turned static mode on or made a placeholder (``_recording_possible``)
+_PROGRAM_MODULE = __name__.rsplit(".", 2)[0] + ".static.program"
+
+
+def _records(args):
+    """The static program module when an op on ``args`` records into the
+    current program (a lazy input, or under ``enable_static`` a
+    ``Parameter`` input, which run eagerly would enter the program as a
+    frozen constant), else None."""
+    prog = sys.modules.get(_PROGRAM_MODULE)
+    if prog is None or not prog._recording_possible:
+        return None
+    from .tensor import LazyTensor, Parameter
+    if any(isinstance(a, LazyTensor) for a in args) or (
+            prog.in_static_mode()
+            and any(isinstance(a, Parameter) for a in args)):
+        return prog
+    return None
 
 
 def _wrap_outputs(out, stop_gradient=None):
@@ -104,8 +151,14 @@ def apply(fn: Callable, *args, op_name: str = None, has_aux: bool = False,
     not differentiated."""
     from .tensor import Tensor
     name = op_name or getattr(fn, "__name__", "op")
-    amp_on = current_amp_state().enable
-    vals = [_input_value(a, name, amp_on) if isinstance(a, Tensor) else a
+    rule = cast_rule(name)
+    prog = _records(args)
+    if prog is not None:
+        if rule is not None:
+            fn = AmpWrappedOp(fn, *rule)
+        return prog.make_lazy_output(fn, args, kwargs, name,
+                                     has_aux=has_aux)
+    vals = [_input_value(a, rule) if isinstance(a, Tensor) else a
             for a in args]
     out = fn(*vals, **kwargs)
     if flags_mod._FLAGS.get("FLAGS_check_nan_inf", False):

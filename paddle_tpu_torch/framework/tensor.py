@@ -26,7 +26,7 @@ from . import dtype as dtype_mod
 from . import place as place_mod
 from . import tape as tape_mod
 
-__all__ = ["Tensor", "Parameter", "to_tensor"]
+__all__ = ["Tensor", "Parameter", "LazyTensor", "to_tensor"]
 
 
 def _numpy_to_torch(arr: np.ndarray) -> torch.Tensor:
@@ -396,6 +396,104 @@ class Parameter(Tensor):
         self.regularizer = None
         self.need_clip = True
         self.is_distributed = False
+
+
+class LazyTensor(Tensor):
+    """A static program's variable (the JAX package's placeholder ``Tensor``
+    over a ``ShapeDtypeStruct``): a ``static.data`` feed or the output of a
+    recorded op. ``_value`` is a ``meta`` tensor (shape and dtype, no
+    storage) and ``_lazy`` says what it stands for: ``("feed", name)`` or
+    ``(node, output index)``. ``shape``, ``dtype``, ``ndim`` and ``name``
+    work; ops on it record (:func:`~paddle_tpu_torch.framework.tape.apply`);
+    reading its value on the host raises, since it has none until
+    ``Executor.run``."""
+
+    __slots__ = ("_lazy",)
+
+    @classmethod
+    def _make(cls, value, lazy, name=None, stop_gradient=True):
+        t = object.__new__(cls)
+        t._value = value
+        t._lazy = lazy
+        t._stop_gradient = bool(stop_gradient)
+        t.name = name
+        t.persistable = False
+        t._is_param = False
+        return t
+
+    def _no_value(self, what):
+        label = self.name or "an op output"
+        raise RuntimeError(
+            f"{what} of a static program's variable ({label}, shape "
+            f"{self.shape}): it has no value until Executor.run; fetch it "
+            f"with fetch_list=[...]")
+
+    @property
+    def place(self):
+        return place_mod._get_current_place()
+
+    @property
+    def is_leaf(self) -> bool:
+        return self._lazy[0] == "feed"
+
+    @property
+    def stop_gradient(self) -> bool:
+        return self._stop_gradient
+
+    @stop_gradient.setter
+    def stop_gradient(self, sg):
+        # read when an op consumes the variable: it detaches it then
+        self._stop_gradient = bool(sg)
+
+    @property
+    def grad(self):
+        return None
+
+    def backward(self, grad_tensor=None, retain_graph=False):
+        raise RuntimeError("backward() of a static program's variable: use "
+                           "optimizer.minimize(loss) or static.gradients")
+
+    def numpy(self):
+        self._no_value("numpy()")
+
+    def __array__(self, dtype=None, copy=None):
+        self._no_value("np.asarray()")
+
+    def item(self, *idx):
+        self._no_value("item()")
+
+    def tolist(self):
+        self._no_value("tolist()")
+
+    def __float__(self):
+        self._no_value("float()")
+
+    def __int__(self):
+        self._no_value("int()")
+
+    def __bool__(self):
+        self._no_value("bool()")
+
+    def __repr__(self):
+        return (f"Variable(name={self.name}, shape={self.shape}, "
+                f"dtype={self.dtype.name}, stop_gradient="
+                f"{self.stop_gradient})")
+
+    def detach(self):
+        out = tape_mod.apply(lambda v: v, self, op_name="detach")
+        out.stop_gradient = True
+        return out
+
+    def set_value(self, value):
+        self._no_value("set_value()")
+
+    def _moved(self, dev):
+        self._no_value("moving")
+
+    def _inplace_assign(self, new):
+        self._value, self._lazy = new._value, new._lazy
+        self._stop_gradient = new.stop_gradient and self._stop_gradient
+        return self
 
 
 def to_tensor(data, dtype=None, place=None,

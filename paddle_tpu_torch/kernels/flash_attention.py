@@ -21,7 +21,9 @@ runs (``_build.instance_head_dim``).
 
 Dispatch: a CPU tensor takes the plain version
 (:func:`flash_attention_reference`, :func:`flash_attention_bwd_reference`);
-a CUDA tensor launches the kernel or raises. ``launches``,
+a CUDA tensor launches the kernel or raises; a ``meta`` tensor (a static
+program recording the op) gets outputs of the right shapes and dtypes and
+no arithmetic. ``launches``,
 ``dq_launches`` and ``dkv_launches`` count kernel launches.
 
 Routes (:func:`kernel_route`, the C launch's rule from shapes and strides):
@@ -272,12 +274,24 @@ def _launch(q, k, v, causal, scale, offset):
     return o, lse
 
 
+def _meta_outputs(q):
+    """``(o, lse)`` of a forward on ``meta`` tensors: shapes and dtypes
+    only, no arithmetic (how a static program records the op)."""
+    b, sq, n, _ = q.shape
+    return (torch.empty(q.shape, dtype=q.dtype, device="meta"),
+            torch.empty((b, n, sq), dtype=torch.float32, device="meta"))
+
+
 def flash_attention_fwd(q, k, v, causal=False, scale=None, q_offset=None):
     """``[B, S, N, D]`` forward returning ``(o, lse)``: the kernel for
-    CUDA tensors, the plain version for CPU tensors. Not differentiable:
-    :func:`flash_attention_bshd` is."""
+    CUDA tensors, the plain version for CPU tensors, and shapes alone
+    for ``meta`` tensors (a static program's record). Not
+    differentiable: :func:`flash_attention_bshd` is."""
     if all(t.device.type == "cpu" for t in (q, k, v)):
         return flash_attention_reference(q, k, v, causal, scale, q_offset)
+    if all(t.device.type == "meta" for t in (q, k, v)):
+        _check_shapes(q, k, v, causal, q_offset)
+        return _meta_outputs(q)
     if not all(t.is_cuda for t in (q, k, v)):
         raise ValueError(f"flash attention runs on CUDA or CPU tensors, got "
                          f"{q.device}, {k.device}, {v.device}")
@@ -352,6 +366,11 @@ def flash_attention_bwd(q, k, v, o, lse, do, causal=False, scale=None,
     if all(t.device.type == "cpu" for t in ts):
         return flash_attention_bwd_reference(q, k, v, o, lse, do, causal,
                                              scale, q_offset)
+    if all(t.device.type == "meta" for t in ts):
+        _check_shapes(q, k, v, causal, q_offset)
+        return (torch.empty_like(q), torch.empty(k.shape, dtype=q.dtype,
+                                                 device="meta"),
+                torch.empty(v.shape, dtype=q.dtype, device="meta"))
     if not all(t.is_cuda for t in ts):
         raise ValueError("flash attention backward runs on CUDA or CPU "
                          "tensors, got " + ", ".join(str(t.device)

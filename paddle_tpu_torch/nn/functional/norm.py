@@ -7,13 +7,16 @@ the mean and the biased variance over the normalized dims, ``(x - mean) /
 sqrt(var + eps)``, then the weight and bias, in the input's dtype.
 ``batch_norm`` in training updates the running statistics in place
 (``new = momentum * old + (1 - momentum) * batch``, the biased batch
-variance, as the JAX function), so a captured graph keeps them current.
+variance, as the JAX function), so a captured graph keeps them current;
+in a static program the update is recorded
+(:func:`paddle_tpu_torch.static.program.record_buffer_update`) and the
+Executor writes it into the statistics after each run.
 """
 from __future__ import annotations
 
 import torch
 
-from ...framework.tensor import Tensor
+from ...framework.tensor import LazyTensor, Tensor
 from ...ops._dispatch import apply
 
 __all__ = ["batch_norm", "layer_norm", "instance_norm", "group_norm",
@@ -63,11 +66,27 @@ def batch_norm(x, running_mean, running_var, weight=None, bias=None,
         return _affine(out, wb, s, weight, bias), (mean, var)
 
     out, (bm, bv) = apply(g, x, *args, op_name="batch_norm", has_aux=True)
-    if isinstance(running_mean, Tensor):
-        with torch.no_grad():
-            for run, batch in ((running_mean, bm), (running_var, bv)):
-                r = run._value
-                r.copy_(momentum * r + (1.0 - momentum) * batch._value)
+    if not isinstance(running_mean, Tensor):
+        return out
+
+    def update(b, r):
+        return momentum * r + (1.0 - momentum) * b
+
+    if isinstance(bm, LazyTensor):
+        # a static program: the update is an op of the program, chained
+        # off the buffer's latest update in it (a layer applied twice
+        # compounds within one run); the Executor copies it into the
+        # buffer after each run, so it compounds across runs too
+        from ...static.program import (latest_buffer_value,
+                                       record_buffer_update)
+        for run, batch in ((running_mean, bm), (running_var, bv)):
+            record_buffer_update(run, apply(
+                update, batch, latest_buffer_value(run),
+                op_name="bn_stats_update"))
+        return out
+    with torch.no_grad():
+        for run, batch in ((running_mean, bm), (running_var, bv)):
+            run._value.copy_(update(batch._value, run._value))
     return out
 
 

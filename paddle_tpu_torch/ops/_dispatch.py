@@ -8,7 +8,8 @@ import torch
 
 from ..framework import tape as _tape
 from ..framework.dtype import promote_types
-from ..framework.tensor import Tensor
+from ..framework.place import to_torch_device
+from ..framework.tensor import LazyTensor, Tensor
 
 apply = _tape.apply
 
@@ -26,7 +27,13 @@ def wrap(v, stop_gradient=True):
 
 
 def apply_nondiff(fn, *args, **kwargs):
-    """Run an op whose outputs are not differentiable (bool, int)."""
+    """Run an op whose outputs are not differentiable (bool, int); with a
+    lazy input it records into the static program, as in the JAX
+    package."""
+    if any(isinstance(a, LazyTensor) for a in args):
+        from ..static.program import make_lazy_output
+        return make_lazy_output(fn, args, kwargs,
+                                getattr(fn, "__name__", "op"), nondiff=True)
     vals = [a._value.detach() if isinstance(a, Tensor) else a for a in args]
     with torch.no_grad():
         return wrap(fn(*vals, **kwargs))
@@ -50,15 +57,18 @@ def _scalar_like(scalar, ref: Tensor) -> Tensor:
     bool, and a complex with a real tensor gives complex."""
     rv = ref._value
     dt = rv.dtype
+    # beside a static program's variable (a meta value): on the current
+    # place, where the program runs
+    dev = to_torch_device() if rv.is_meta else rv.device
     if isinstance(scalar, bool):
-        return Tensor._wrap(torch.tensor(scalar, device=rv.device), True)
+        return Tensor._wrap(torch.tensor(scalar, device=dev), True)
     if isinstance(scalar, float) and not (rv.is_floating_point()
                                           or rv.is_complex()) \
             and dt != torch.bool:
         dt = torch.float32
     if isinstance(scalar, complex) and not rv.is_complex():
         dt = torch.complex128
-    return Tensor._wrap(torch.tensor(scalar, dtype=dt, device=rv.device),
+    return Tensor._wrap(torch.tensor(scalar, dtype=dt, device=dev),
                         True)
 
 

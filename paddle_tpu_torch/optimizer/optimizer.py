@@ -248,10 +248,32 @@ class Optimizer:
 
     def minimize(self, loss, startup_program=None, parameters=None,
                  no_grad_set=None):
-        """Dygraph ``minimize``: ``loss.backward()``, then :meth:`step`."""
+        """With a static program's loss (under ``enable_static``), record
+        the update on the program: ``Executor.run`` then differentiates
+        and updates in the step it runs. Otherwise (dygraph)
+        ``loss.backward()``, then :meth:`step`."""
+        from ..framework.tensor import LazyTensor
+        if isinstance(loss, LazyTensor):
+            from ..static.program import default_main_program
+            default_main_program()._record_minimize(self, loss)
+            return [], []
         loss.backward()
         self.step()
         return None, None
+
+    def _adopt_parameters(self, params):
+        """The parameters of ``params`` (a static program's, in the order
+        it reads them) that this optimizer updates: all of them when it
+        was made without a parameter list (it takes them, named by their
+        ``name``), else those on its list."""
+        if self._parameter_list is None:
+            self._parameter_list = list(params)
+            self._names = [p.name or f"param_{i}"
+                           for i, p in enumerate(params)]
+            self._named = all(p.name for p in params)
+            self._name_of = {id(p): n for n, p in zip(self._names, params)}
+            return list(params)
+        return [p for p in params if id(p) in self._name_of]
 
 
 class SGD(Optimizer):

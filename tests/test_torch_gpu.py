@@ -1795,3 +1795,158 @@ def test_bert_replays_draw_new_dropout_masks(bert_card):
     assert all(res["differ"])
     sigma = (0.2 * 0.8 / (2 * 64 * 64)) ** 0.5
     assert all(abs(k - 0.8) <= 4 * sigma for k in res["kept"]), res
+
+
+# -------------------------------------------- paddle.static on the card
+
+def _static_bert(bf16=True):
+    """bench_bert's static build at tiny BERT (2 layers, B = 2, S = 64,
+    dropout 0) on the card; static mode left off."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch import static
+    from paddle_tpu_torch.models import bert as tbert
+    paddle.seed(0)
+    static.enable_static()
+    try:
+        main = static.Program()
+        with static.program_guard(main):
+            with paddle.amp.auto_cast(enable=bf16, dtype="bfloat16"):
+                ids = static.data("ids", [2, 64], "int64")
+                labels = static.data("labels", [2, 64], "int64")
+                model = tbert.BertForPretraining(tbert.BertModel(
+                    tbert.bert_tiny_config()))
+                loss = model.forward_with_mlm_loss(ids, labels)
+                paddle.optimizer.AdamW(
+                    learning_rate=1e-3,
+                    parameters=model.parameters()).minimize(loss)
+    finally:
+        static.disable_static()
+    return main, loss
+
+
+def _static_card_cases():
+    """The static Executor on the card (JSON-ready): tiny BERT's program
+    run 4 times (the first captures), its launches a run and graphs; a
+    fetched loss after the next run; a program fed two batch shapes (two
+    graphs, each replayed); the kernels of one static step read from the
+    nodes of a CUDA graph captured around it; a capture that fails."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch import static
+    from paddle_tpu_torch.framework.graphs import eager_step
+    out = {}
+    main, loss = _static_bert()
+    ids, labels = _bert_batch()
+    feed = {"ids": paddle.to_tensor(ids), "labels": paddle.to_tensor(labels)}
+    exe = static.Executor()
+    losses, counts, graphs, captures = [], [], [], []
+    for _ in range(4):
+        c0 = _ts_counts()
+        losses.append(float(exe.run(main, feed=feed, fetch_list=[loss])[0]))
+        counts.append([a - b for a, b in zip(_ts_counts(), c0)])
+        graphs.append(len(exe.graphs(main)))
+        captures.append(exe.capture_s)
+    r1 = exe.run(main, feed=feed, fetch_list=[loss], return_numpy=False)[0]
+    v1 = float(r1)
+    r2 = exe.run(main, feed=feed, fetch_list=[loss], return_numpy=False)[0]
+    torch.cuda.synchronize()
+    out["bert"] = dict(
+        losses=losses, counts=counts, graphs=graphs,
+        captured_once=captures[0] > 0 and len(set(captures)) == 1,
+        fetch=[v1, float(r1), float(r2)],
+        aliased=r1._value.data_ptr() == r2._value.data_ptr())
+    # two feed signatures: two graphs, each replayed
+    static.enable_static()
+    try:
+        prog = static.Program()
+        with static.program_guard(prog):
+            x = static.data("x", [4, 8], "float32")
+            y = (paddle.nn.Linear(8, 3)(x) ** 2).sum()
+    finally:
+        static.disable_static()
+    sums = []
+    for n in (4, 6, 4, 6):
+        a = np.ones((n, 8), np.float32)
+        sums.append(float(exe.run(prog, feed={"x": a}, fetch_list=[y])[0]))
+    out["signatures"] = dict(graphs=sorted(s[0][0][0] for s in
+                                           exe.graphs(prog)), sums=sums)
+    # the kernels of one static step, from a graph captured around it
+    main_k, loss_k = _static_bert()
+    exe_k = static.Executor()
+    with eager_step():
+        names = _attention_kernels(lambda: exe_k.run(
+            main_k, feed=feed, fetch_list=[loss_k], return_numpy=False))
+    out["kernels"] = sorted(names)
+    # a host read inside the program: the first run raises, no graph kept
+    static.enable_static()
+    try:
+        bad = static.Program()
+        with static.program_guard(bad):
+            x = static.data("x", [4], "float32")
+            z = static.Print(x * 2.0, message="host read")
+    finally:
+        static.disable_static()
+    try:
+        exe.run(bad, feed={"x": np.ones(4, np.float32)}, fetch_list=[z])
+    except RuntimeError as e:
+        raised = str(e).splitlines()[0][:200]
+    else:
+        raised = None
+    out["failing"] = dict(raised=raised, graphs=len(exe.graphs(bad)))
+    return out
+
+
+@pytest.fixture(scope="module")
+def static_card():
+    _cuda()
+    return _in_subprocess("_static_card_cases")
+
+
+@pytest.mark.gpu
+def test_static_executor_captures_once_and_replays(static_card):
+    """bench_bert's static program at tiny BERT under auto_cast(bf16): one
+    graph for its feed signature, captured by the first run alone; every
+    run launches the flash forward, dQ and dK/dV 2/2/2 (the first run's
+    eager step, then replays); falling losses."""
+    res = static_card["bert"]
+    assert res["graphs"] == [1, 1, 1, 1]
+    assert res["captured_once"]
+    assert res["counts"] == [[2, 2, 2, 0, 0]] * 4
+    assert res["losses"][-1] < res["losses"][0]
+
+
+@pytest.mark.gpu
+def test_static_fetch_does_not_alias_the_graph(static_card):
+    """A loss fetched with return_numpy=False keeps its value after the
+    next run overwrites the graph's output."""
+    v1, r1_after, r2 = static_card["bert"]["fetch"]
+    assert r1_after == v1 and r2 != v1
+    assert not static_card["bert"]["aliased"]
+
+
+@pytest.mark.gpu
+def test_static_graph_per_feed_signature(static_card):
+    """Feeds of two batch shapes: two graphs, and each replay gives the
+    value its first run gave."""
+    res = static_card["signatures"]
+    assert res["graphs"] == [4, 6]
+    assert res["sums"][0] == res["sums"][2] and res["sums"][1] == \
+        res["sums"][3]
+
+
+@pytest.mark.gpu
+def test_static_program_launches_rows_1_to_3(static_card):
+    """The kernel nodes of a CUDA graph captured around one static step
+    (bf16, attention dropout 0): the wgmma flash forward, the dQ pass and
+    the wgmma dK/dV pass."""
+    names = static_card["kernels"]
+    assert any("flash_fwd_wg" in n for n in names), names
+    assert any("flash_bwd_dq" in n for n in names), names
+    assert any("flash_bwd_dkv_wg" in n for n in names), names
+
+
+@pytest.mark.gpu
+def test_static_failed_capture_raises(static_card):
+    """A program that reads a value on the host (static.Print) raises in
+    its first run, before any capture, and keeps no graph."""
+    res = static_card["failing"]
+    assert res["raised"] is not None and res["graphs"] == 0

@@ -48,6 +48,16 @@ _PROBE = textwrap.dedent("""
             "paddle_tpu_torch.nn.functional.loss",
             "paddle_tpu_torch.models.bert",
             "paddle_tpu_torch.models._encoder",
+            "paddle_tpu_torch.static",
+            "paddle_tpu_torch.static.program",
+            "paddle_tpu_torch.static.executor",
+            "paddle_tpu_torch.static.io",
+            "paddle_tpu_torch.static.parity",
+            "paddle_tpu_torch.static.serde",
+            "paddle_tpu_torch.static.nn",
+            "paddle_tpu_torch.static.nn.common",
+            "paddle_tpu_torch.jit",
+            "paddle_tpu_torch.jit.save_load",
             } <= set(names), names
     import chip_smoke
     bad = sorted(m for m in sys.modules
@@ -65,7 +75,15 @@ _PROBE = textwrap.dedent("""
         from paddle_tpu_torch.models.ernie import (ErnieMoeModel,
                                                    ernie_moe_tiny_config)
         model = GPTForPretraining(GPTModel(gpt_tiny_config(), device="cpu"))
-        for make in (lambda: ServingEngine(model),
+        from paddle_tpu_torch import static
+
+        def static_run():
+            prog = static.Program()
+            with static.program_guard(prog):
+                x = static.data("x", [2], "float32")
+            static.Executor().run(prog, feed={"x": [1.0, 2.0]},
+                                  fetch_list=[x])
+        for make in (static_run, lambda: ServingEngine(model),
                      lambda: GPTModel(gpt_tiny_config()),
                      lambda: ErnieMoeModel(ernie_moe_tiny_config()),
                      lambda: PagePool(4, 4, 1, 1, 4)):

@@ -1,0 +1,773 @@
+"""``paddle_tpu_torch.static`` against ``paddle_tpu.static``, on the CPU.
+
+Each program is built in both packages under ``enable_static`` by the
+same build function, the port's parameters are set from the JAX ones
+(matched in the order the program reads them), and both Executors run on
+the same numpy feeds. The JAX static tests are the oracles:
+``test_jit_static.py`` (forward, ``minimize``, dropout across runs),
+``test_static_nn.py`` (the layer functions, BN's running statistics, a
+layer captured twice), ``test_program_serde.py`` and
+``test_advice_fixes.py``'s static Momentum and Adam.
+
+Tolerances (f32): fetches rtol 1e-5; 3 runs of SGD, Momentum and AdamW
+(also under a StepDecay read each run): losses rtol 1e-5, parameters
+atol 2e-5; ``gradients`` and ``append_backward`` rtol 1e-5; metrics
+(``accuracy``, ``auc``) rtol 1e-5 (JAX accumulates ``auc`` in f64).
+"""
+import contextlib
+import os
+import pickle
+
+import numpy as np
+import pytest
+import torch
+
+import paddle_tpu as jp
+import paddle_tpu.static as jstatic
+import paddle_tpu.static.nn as jsnn
+import paddle_tpu_torch as tp
+import paddle_tpu_torch.static as tstatic
+import paddle_tpu_torch.static.nn as tsnn
+from paddle_tpu.static import parity as jparity
+from paddle_tpu_torch.framework import place as tplace
+from paddle_tpu_torch.framework import random as trandom
+from paddle_tpu_torch.framework.tensor import LazyTensor
+from paddle_tpu_torch.kernels import flash_attention as tfa
+from paddle_tpu_torch.static import io as tio
+
+RTOL = 1e-5
+PARAM_ATOL = 2e-5
+PKGS = {"jax": (jp, jstatic), "torch": (tp, tstatic)}
+
+
+@pytest.fixture(autouse=True)
+def _cpu_place():
+    prev = tplace._current_place
+    tp.set_device("cpu")
+    yield
+    tplace._current_place = prev
+    jstatic.disable_static()
+    tstatic.disable_static()
+
+
+@contextlib.contextmanager
+def _static(static):
+    static.enable_static()
+    try:
+        yield
+    finally:
+        static.disable_static()
+
+
+def _program(which, build):
+    """``build(paddle, static)`` under enable_static and a fresh
+    program_guard; returns (main, what build returned)."""
+    paddle, static = PKGS[which]
+    main = static.Program()
+    with _static(static), static.program_guard(main, static.Program()):
+        out = build(paddle, static)
+    return main, out
+
+
+def _params(which, main):
+    return (jparity._program_params(main) if which == "jax"
+            else tio._program_params(main))
+
+
+def _carry(jmain, tmain):
+    """Set the port program's parameters from the JAX program's (matched in
+    the order each program reads them)."""
+    jps, tps = _params("jax", jmain), _params("torch", tmain)
+    assert [list(p.shape) for p in jps] == [p.shape for p in tps]
+    with torch.no_grad():
+        for jpar, tpar in zip(jps, tps):
+            tpar._value.copy_(torch.from_numpy(np.array(jpar._value)))
+    return jps, tps
+
+
+def _pair(build):
+    jmain, jout = _program("jax", build)
+    tmain, tout = _program("torch", build)
+    _carry(jmain, tmain)
+    return (jmain, jout), (tmain, tout)
+
+
+def _run(which, main, feed, fetch, **kw):
+    static = PKGS[which][1]
+    with _static(static):
+        return static.Executor().run(main, feed=feed, fetch_list=fetch, **kw)
+
+
+def _rng(seed=0):
+    return np.random.default_rng(seed)
+
+
+# ---- the forward program and the Executor -------------------------------
+
+def test_forward_program_matches_jax():
+    x_np = _rng().standard_normal((4, 3)).astype(np.float32)
+
+    def build(paddle, static):
+        x = static.data("x", [4, 3], "float32")
+        return paddle.tanh(paddle.nn.Linear(3, 2)(x)) * 2.0
+
+    (jm, jy), (tm, ty) = _pair(build)
+    want = _run("jax", jm, {"x": x_np}, [jy])[0]
+    got = _run("torch", tm, {"x": x_np}, [ty])[0]
+    assert isinstance(got, np.ndarray) and got.shape == (4, 2)
+    np.testing.assert_allclose(got, want, rtol=RTOL)
+    # facade Tensors with return_numpy=False; a facade feed
+    (t,) = _run("torch", tm, {"x": tp.to_tensor(x_np)}, [ty],
+                return_numpy=False)
+    assert isinstance(t, tp.Tensor) and not isinstance(t, LazyTensor)
+    np.testing.assert_allclose(t.numpy(), want, rtol=RTOL)
+
+
+def test_lazy_variables():
+    with _static(tstatic), tstatic.program_guard(tstatic.Program()):
+        x = tstatic.data("x", [None, 3], "float32")
+        y = tp.nn.Linear(3, 5)(x)
+        assert isinstance(x, LazyTensor) and isinstance(y, LazyTensor)
+        assert x.shape == [1, 3] and x.dtype == tp.float32 and x.ndim == 2
+        assert x.name == "x" and y.shape == [1, 5]
+        assert y.stop_gradient is False and x.stop_gradient is True
+        for read in (x.numpy, y.item, y.tolist, lambda: float(y),
+                     lambda: bool(y), lambda: np.asarray(y)):
+            with pytest.raises(RuntimeError, match="no value until"):
+                read()
+        assert y.detach().stop_gradient is True
+
+
+def test_executor_startup_compiled_and_feed_errors():
+    def build(paddle, static):
+        x = static.data("x", [2, 3], "float32")
+        return x * 3.0 + 1.0
+
+    tm, y = _program("torch", build)
+    exe = tstatic.Executor()
+    assert exe.run(tstatic.default_startup_program()) == []
+    x_np = np.ones((2, 3), np.float32)
+    out = exe.run(tstatic.CompiledProgram(tm), feed={"x": x_np},
+                  fetch_list=[y])[0]
+    np.testing.assert_array_equal(out, np.full((2, 3), 4.0, np.float32))
+    # a feed of another dtype is cast to the variable's
+    out = exe.run(tm, feed={"x": x_np.astype(np.float64)}, fetch_list=[y])
+    assert out[0].dtype == np.float32
+    with pytest.raises(KeyError, match="'x' is missing"):
+        exe.run(tm, feed={}, fetch_list=[y])
+    pexe = tstatic.ParallelExecutor(main_program=tm)
+    np.testing.assert_array_equal(
+        pexe.run(fetch_list=[y], feed={"x": x_np})[0], out[0])
+
+
+def test_train_and_infer_from_dataset(capsys):
+    def build(paddle, static):
+        x = static.data("x", [2, 2], "float32")
+        return (x * 2.0).sum()
+
+    tm, y = _program("torch", build)
+    data = [{"x": np.full((2, 2), i, np.float32)} for i in range(4)]
+    exe = tstatic.Executor()
+    assert exe.train_from_dataset(tm, data, fetch_list=[y],
+                                  fetch_info=["s"], print_period=2) is None
+    assert "step 4: s=24.000000" in capsys.readouterr().out
+    assert exe.infer_from_dataset(tm, data, fetch_list=[y]) is None
+
+
+# ---- minimize ----------------------------------------------------------
+
+def _opt(paddle, kind, params, lr):
+    o = paddle.optimizer
+    if kind == "sgd":
+        return o.SGD(learning_rate=lr, parameters=params)
+    if kind == "momentum":
+        return o.Momentum(learning_rate=lr, momentum=0.9, parameters=params)
+    return o.AdamW(learning_rate=lr, parameters=params, weight_decay=0.05)
+
+
+@pytest.mark.parametrize("kind", ["sgd", "momentum", "adamw",
+                                  "adamw_stepdecay"])
+def test_minimize_three_runs_match_jax(kind):
+    rng = _rng(1)
+    x_np = rng.standard_normal((8, 3)).astype(np.float32)
+    y_np = rng.standard_normal((8, 1)).astype(np.float32)
+    scheds = {}
+
+    def build(paddle, static):
+        x = static.data("x", [8, 3], "float32")
+        yt = static.data("y", [8, 1], "float32")
+        net = paddle.nn.Sequential(paddle.nn.Linear(3, 6), paddle.nn.Tanh(),
+                                   paddle.nn.Linear(6, 1))
+        loss = ((net(x) - yt) ** 2).mean()
+        lr = 0.05
+        if kind == "adamw_stepdecay":
+            lr = scheds[paddle.__name__] = paddle.optimizer.lr.StepDecay(
+                0.05, step_size=1, gamma=0.5)
+        _opt(paddle, kind.split("_")[0], net.parameters(), lr).minimize(loss)
+        return loss
+
+    (jm, jloss), (tm, tloss) = _pair(build)
+    runs = {}
+    for which, main, loss in (("jax", jm, jloss), ("torch", tm, tloss)):
+        static = PKGS[which][1]
+        exe = static.Executor()
+        losses = []
+        with _static(static):
+            for _ in range(3):
+                losses.append(float(exe.run(main, feed={"x": x_np, "y": y_np},
+                                            fetch_list=[loss])[0]))
+                if scheds:
+                    scheds[PKGS[which][0].__name__].step()
+        runs[which] = (losses, [np.array(p._value, np.float32) if which ==
+                                "jax" else p.numpy()
+                                for p in _params(which, main)])
+    np.testing.assert_allclose(runs["torch"][0], runs["jax"][0], rtol=RTOL)
+    assert runs["torch"][0][2] < runs["torch"][0][0]
+    for t, j in zip(runs["torch"][1], runs["jax"][1]):
+        np.testing.assert_allclose(t, j, atol=PARAM_ATOL)
+
+
+def test_static_momentum_matches_eager():
+    """test_advice_fixes' static Momentum: 3 static runs equal 3 eager
+    Momentum steps of the port (and so carry the velocity)."""
+    rng = _rng(0)
+    x_np = rng.standard_normal((8, 2)).astype(np.float32)
+    y_np = x_np @ np.array([[1.0], [2.0]], np.float32)
+    l_e = tp.nn.Linear(2, 1)
+    w0, b0 = l_e.weight.numpy().copy(), l_e.bias.numpy().copy()
+    o_e = tp.optimizer.Momentum(learning_rate=0.1, momentum=0.9,
+                                parameters=l_e.parameters())
+    for _ in range(3):
+        loss = ((l_e(tp.to_tensor(x_np)) - tp.to_tensor(y_np)) ** 2).mean()
+        loss.backward()
+        o_e.step()
+        o_e.clear_grad()
+
+    def build(paddle, static):
+        x = static.data("x", [8, 2], "float32")
+        yt = static.data("y", [8, 1], "float32")
+        lin = paddle.nn.Linear(2, 1)
+        lin.weight.set_value(w0)
+        lin.bias.set_value(b0)
+        loss = ((lin(x) - yt) ** 2).mean()
+        paddle.optimizer.Momentum(learning_rate=0.1, momentum=0.9,
+                                  parameters=lin.parameters()).minimize(loss)
+        return lin, loss
+
+    tm, (lin, loss) = _program("torch", build)
+    exe = tstatic.Executor()
+    for _ in range(3):
+        exe.run(tm, feed={"x": x_np, "y": y_np}, fetch_list=[loss])
+    np.testing.assert_array_equal(lin.weight.numpy(), l_e.weight.numpy())
+    np.testing.assert_array_equal(lin.bias.numpy(), l_e.bias.numpy())
+
+
+def test_minimize_without_a_parameter_list_trains():
+    """test_static_nn_params_train: an optimizer made without parameters
+    takes the program's."""
+    x_np = _rng().standard_normal((4, 3)).astype(np.float32)
+    y_np = np.ones((4, 1), np.float32)
+
+    def build(paddle, static):
+        x = static.data("x", [4, 3], "float32")
+        y = static.data("y", [4, 1], "float32")
+        snn = jsnn if paddle is jp else tsnn
+        loss = paddle.mean(paddle.square(snn.fc(x, size=1) - y))
+        paddle.optimizer.SGD(learning_rate=0.1).minimize(loss)
+        return loss
+
+    (jm, jl), (tm, tl) = _pair(build)
+    runs = {}
+    for which, main, loss in (("jax", jm, jl), ("torch", tm, tl)):
+        static = PKGS[which][1]
+        exe = static.Executor()
+        with _static(static):
+            runs[which] = [float(exe.run(main, feed={"x": x_np, "y": y_np},
+                                         fetch_list=[loss])[0])
+                           for _ in range(5)]
+    np.testing.assert_allclose(runs["torch"], runs["jax"], rtol=RTOL)
+    assert runs["torch"][-1] < runs["torch"][0]
+
+
+def test_dropout_varies_across_runs():
+    """test_traced_dropout_varies_across_calls' static form: each run
+    draws a new mask, and recording draws none."""
+    with _static(tstatic):
+        main = tstatic.Program()
+        gen = trandom.generator(torch.device("cpu"))
+        state = gen.get_state()
+        cpu_state = torch.random.get_rng_state()
+        with tstatic.program_guard(main):
+            x = tstatic.data("x", [4096], "float32")
+            y = tp.nn.Dropout(0.5)(x)
+        assert torch.equal(gen.get_state(), state)
+        assert torch.equal(torch.random.get_rng_state(), cpu_state)
+        exe = tstatic.Executor()
+        ones = np.ones((4096,), np.float32)
+        a = exe.run(main, feed={"x": ones}, fetch_list=[y])[0]
+        b = exe.run(main, feed={"x": ones}, fetch_list=[y])[0]
+    assert not np.array_equal(a, b)
+    assert set(np.unique(a)) <= {0.0, 2.0}
+    assert abs((a != 0).mean() - 0.5) < 0.05
+
+
+def test_recording_runs_no_kernel_and_no_plain_version(monkeypatch):
+    """Recording an attention op gives shapes only: no kernel launch, no
+    plain version, no draw."""
+    def refuse(*a, **k):
+        raise AssertionError("the plain version ran at record time")
+    monkeypatch.setattr(tfa, "flash_attention_reference", refuse)
+    before = (tfa.launches, tfa.dq_launches, tfa.dkv_launches)
+    with _static(tstatic), tstatic.program_guard(tstatic.Program()):
+        q = tstatic.data("q", [2, 64, 2, 32], "float32")
+        lin = tp.nn.Linear(32, 32)
+        o = tp.nn.functional.scaled_dot_product_attention(lin(q), q, q)
+    assert o.shape == [2, 64, 2, 32] and o.dtype == tp.float32
+    assert (tfa.launches, tfa.dq_launches, tfa.dkv_launches) == before
+    # the meta rule of both passes: shapes only
+    m = [torch.empty(2, 64, 2, 32, device="meta") for _ in range(3)]
+    o, lse = tfa.flash_attention_fwd(*m)
+    assert o.is_meta and o.shape == (2, 64, 2, 32)
+    assert lse.shape == (2, 2, 64) and lse.dtype == torch.float32
+    grads = tfa.flash_attention_bwd(*m, o, lse, m[0])
+    assert [g.shape for g in grads] == [(2, 64, 2, 32)] * 3
+
+
+def test_lr_scheduler_read_each_run():
+    """A scheduler's lr reaches every run (read on the host, staged as a
+    device scalar): SGD on sum(w * x) moves w by lr * x a run."""
+    sched = tp.optimizer.lr.StepDecay(1.0, step_size=1, gamma=0.5)
+
+    def build(paddle, static):
+        x = static.data("x", [3], "float32")
+        lin = paddle.nn.Linear(3, 1, bias_attr=False)
+        loss = lin(paddle.reshape(x, [1, 3])).sum()
+        paddle.optimizer.SGD(learning_rate=sched,
+                             parameters=lin.parameters()).minimize(loss)
+        return lin, loss
+
+    tm, (lin, loss) = _program("torch", build)
+    w0 = lin.weight.numpy().copy()
+    exe = tstatic.Executor()
+    x_np = np.array([1.0, 2.0, 3.0], np.float32)
+    for _ in range(3):
+        exe.run(tm, feed={"x": x_np}, fetch_list=[loss])
+        sched.step()
+    np.testing.assert_allclose(lin.weight.numpy()[:, 0],
+                               w0[:, 0] - 1.75 * x_np, rtol=RTOL)
+
+
+# ---- buffers: BN running statistics ---------------------------------------
+
+def _bn_pair(two):
+    rng = _rng(3)
+    x1 = (rng.standard_normal((4, 3, 5, 5)) * 2 + 1).astype(np.float32)
+    x2 = (rng.standard_normal((4, 3, 5, 5)) - 1).astype(np.float32)
+
+    def build(paddle, static):
+        a = static.data("x1", [4, 3, 5, 5], "float32")
+        bn = paddle.nn.BatchNorm2D(3)
+        if two:
+            b = static.data("x2", [4, 3, 5, 5], "float32")
+            return bn, bn(a) + bn(b)
+        return bn, bn(a)
+
+    return _pair(build), {"x1": x1, "x2": x2} if two else {"x1": x1}
+
+
+def _stats(which, bn):
+    return [np.array(t._value if which == "jax" else t.numpy(), np.float32)
+            for t in (bn._mean, bn._variance)]
+
+
+@pytest.mark.parametrize("two", [False, True], ids=["once", "twice"])
+def test_bn_running_stats_compound_like_jax(two):
+    """test_static_bn_updates_running_stats and
+    test_static_bn_double_capture_compounds: the updates compound within a
+    run and across runs, as the JAX program's."""
+    ((jm, (jbn, jo)), (tm, (tbn, to))), feed = _bn_pair(two)
+    assert len(tm._buffer_updates) == len(jm._buffer_updates) == \
+        (4 if two else 2)
+    x1 = feed["x1"]
+    rm0 = _stats("torch", tbn)[0]
+    outs = {}
+    for which, main, o, bn in (("jax", jm, jo, jbn), ("torch", tm, to, tbn)):
+        outs[which] = []
+        for _ in range(2):
+            out = _run(which, main, feed, [o])[0]
+            outs[which].append((out, _stats(which, bn)))
+    for (jo_, js), (to_, ts) in zip(outs["jax"], outs["torch"]):
+        np.testing.assert_allclose(to_, jo_, rtol=RTOL, atol=1e-5)
+        for a, b in zip(ts, js):
+            np.testing.assert_allclose(a, b, rtol=RTOL, atol=1e-6)
+    m1 = x1.mean(axis=(0, 2, 3))
+    rm1 = outs["torch"][0][1][0]
+    if not two:
+        np.testing.assert_allclose(rm1, 0.9 * rm0 + 0.1 * m1, rtol=1e-5,
+                                   atol=1e-6)
+        np.testing.assert_allclose(outs["torch"][1][1][0],
+                                   0.9 * rm1 + 0.1 * m1, rtol=1e-5, atol=1e-6)
+    else:
+        m2 = feed["x2"].mean(axis=(0, 2, 3))
+        np.testing.assert_allclose(
+            rm1, 0.9 * (0.9 * rm0 + 0.1 * m1) + 0.1 * m2, rtol=1e-5,
+            atol=1e-6)
+
+
+def test_clone_for_test_leaves_buffers_alone():
+    ((_, _), (tm, (tbn, to))), feed = _bn_pair(False)
+    test_prog = tm.clone(for_test=True)
+    assert test_prog._buffer_updates == [] and len(tm._buffer_updates) == 2
+    before = _stats("torch", tbn)
+    out = _run("torch", test_prog, feed, [to])[0]
+    assert out.shape == (4, 3, 5, 5)
+    for a, b in zip(_stats("torch", tbn), before):
+        np.testing.assert_array_equal(a, b)
+    _run("torch", tm, feed, [to])
+    assert not np.array_equal(_stats("torch", tbn)[0], before[0])
+
+
+# ---- gradients, append_backward -------------------------------------------
+
+def test_gradients_and_append_backward_match_jax():
+    rng = _rng(4)
+    x_np = rng.standard_normal((5, 4)).astype(np.float32)
+    seed_np = rng.standard_normal((5, 3)).astype(np.float32)
+
+    def build(paddle, static):
+        x = static.data("x", [5, 4], "float32")
+        lin = paddle.nn.Linear(4, 3)
+        h = paddle.tanh(lin(x))
+        loss = (h * h).mean()
+        gx, gw = static.gradients([h], [x, lin.weight],
+                                  target_gradients=[paddle.to_tensor(seed_np)])
+        pg = static.append_backward(loss)
+        return [gx, gw] + [g for _, g in pg]
+
+    (jm, jg), (tm, tg) = _pair(build)
+    assert len(jg) == len(tg) == 4
+    want = _run("jax", jm, {"x": x_np}, jg)
+    got = _run("torch", tm, {"x": x_np}, tg)
+    for g, w in zip(got, want):
+        assert g.shape == w.shape
+        np.testing.assert_allclose(g, w, rtol=RTOL, atol=1e-7)
+
+
+# ---- metrics and helpers ---------------------------------------------------
+
+def test_accuracy_and_auc_match_jax():
+    rng = _rng(5)
+    pred = rng.random((64, 5)).astype(np.float32)
+    lab = rng.integers(0, 5, (64, 1)).astype(np.int64)
+    prob = rng.random((64, 2)).astype(np.float32)
+    blab = rng.integers(0, 2, (64, 1)).astype(np.int64)
+
+    def build(paddle, static):
+        p = static.data("p", [64, 5], "float32")
+        y = static.data("y", [64, 1], "int64")
+        q = static.data("q", [64, 2], "float32")
+        z = static.data("z", [64, 1], "int64")
+        a, _, _ = static.auc(q, z)
+        return [static.accuracy(p, y, k=1), static.accuracy(p, y, k=3), a,
+                static.ctr_metric_bundle(q, z)[2]]
+
+    feed = {"p": pred, "y": lab, "q": prob, "z": blab}
+    (jm, jf), (tm, tf) = _pair(build)
+    want = _run("jax", jm, feed, jf)
+    got = _run("torch", tm, feed, tf)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g, np.asarray(w, np.float32), rtol=RTOL)
+
+
+def test_helpers():
+    assert len(tstatic.cpu_places(3)) == 3
+    assert all(isinstance(p, tp.CUDAPlace) for p in tstatic.cuda_places([0]))
+    g = tstatic.create_global_var([2, 3], 1.5, "float32", persistable=True,
+                                  name="g")
+    assert g.shape == [2, 3] and g.persistable and not g.trainable
+    np.testing.assert_array_equal(g.numpy(), np.full((2, 3), 1.5))
+    p = tstatic.create_parameter([3, 4], "float32", name="cp")
+    assert isinstance(p, tp.Parameter) and p.shape == [3, 4]
+    b = tstatic.create_parameter([4], "float32", is_bias=True)
+    np.testing.assert_array_equal(b.numpy(), np.zeros(4))
+    s = tstatic.exponential_decay(0.1, 10, 0.5)
+    assert s() == pytest.approx(0.1)
+    scope = tstatic.executor._Scope()
+    with tstatic.scope_guard(scope):
+        assert tstatic.global_scope() is scope
+    assert tstatic.global_scope() is not scope
+    with tstatic.device_guard("gpu"):
+        pass
+    for name in ("IpuStrategy", "IpuCompiledProgram"):
+        with pytest.raises(RuntimeError, match="IPU"):
+            getattr(tstatic, name)()
+    bs = tstatic.BuildStrategy(fuse=True)
+    assert bs.fuse and bs.missing is None
+    assert isinstance(tstatic.WeightNormParamAttr(dim=1), tp.ParamAttr)
+    assert tstatic.Variable is tp.Tensor
+    spec = tstatic.InputSpec([None, 8], "int64", "ids")
+    assert spec.shape == (1, 8) and spec.dtype == torch.int64
+
+
+def test_print_passes_through(capsys):
+    def build(paddle, static):
+        x = static.data("x", [2], "float32")
+        return static.Print(x * 2.0, message="dbl") + 1.0
+
+    tm, y = _program("torch", build)
+    assert "dbl" not in capsys.readouterr().out      # recording prints none
+    out = _run("torch", tm, {"x": np.array([1.0, 2.0], np.float32)}, [y])[0]
+    np.testing.assert_array_equal(out, [3.0, 5.0])
+    assert "dbl:" in capsys.readouterr().out
+
+
+def test_ema_apply_and_restore():
+    lin = tp.nn.Linear(2, 2)
+    ema = tstatic.ExponentialMovingAverage(0.5, parameter_list=[lin.weight])
+    w0 = lin.weight.numpy().copy()
+    ema.update()
+    with torch.no_grad():
+        lin.weight._value.add_(2.0)
+    ema.update()
+    leaf = lin.weight._value
+    with ema.apply():
+        np.testing.assert_allclose(lin.weight.numpy(), w0 + 1.0, rtol=1e-6)
+    np.testing.assert_allclose(lin.weight.numpy(), w0 + 2.0, rtol=1e-6)
+    assert lin.weight._value is leaf          # written in place
+
+
+def test_program_state_and_io_round_trip(tmp_path):
+    def build(paddle, static):
+        x = static.data("x", [2, 3], "float32")
+        return paddle.nn.Linear(3, 4)(x)
+
+    tm, y = _program("torch", build)
+    x_np = _rng().standard_normal((2, 3)).astype(np.float32)
+    ref = _run("torch", tm, {"x": x_np}, [y])[0]
+    prefix = str(tmp_path / "prog")
+    tstatic.save(tm, prefix)
+    state = tstatic.load_program_state(prefix)
+    params = tio._program_params(tm)
+    leaves = [p._value for p in params]
+    with torch.no_grad():
+        for p in params:
+            p._value.zero_()
+    tstatic.load(tm, prefix)
+    np.testing.assert_allclose(_run("torch", tm, {"x": x_np}, [y])[0], ref,
+                               rtol=1e-6)
+    assert [p._value for p in params] == leaves     # in place
+    with torch.no_grad():
+        for p in params:
+            p._value.zero_()
+    tstatic.set_program_state(tm, state)
+    np.testing.assert_allclose(_run("torch", tm, {"x": x_np}, [y])[0], ref,
+                               rtol=1e-6)
+    blob = tstatic.serialize_persistables([], [y])
+    with torch.no_grad():
+        for p in params:
+            p._value.zero_()
+    by_name = tstatic.deserialize_persistables(tm, blob)
+    assert set(by_name) == {p.name for p in params}
+    np.testing.assert_allclose(_run("torch", tm, {"x": x_np}, [y])[0], ref,
+                               rtol=1e-6)
+    path = str(tmp_path / "blob.bin")
+    tstatic.save_to_file(path, blob)
+    assert tstatic.load_from_file(path) == blob
+    assert tstatic.normalize_program(tm, [tm._feeds["x"]], [y]) is tm
+    with pytest.raises(NotImplementedError, match="item 10"):
+        tstatic.save_inference_model(prefix, [tm._feeds["x"]], [y])
+    with pytest.raises(NotImplementedError, match="item 10"):
+        tstatic.load_inference_model(prefix)
+
+
+# ---- static.nn ---------------------------------------------------------------
+
+SNN_CASES = {
+    "fc_flatten_relu": ([("x", (2, 3, 4), "float32")],
+                        lambda s, x: s.fc(x, size=5, num_flatten_dims=1,
+                                          activation="relu")),
+    "fc_leading_dims": ([("x", (2, 3, 4, 5), "float32")],
+                        lambda s, x: s.fc(x, size=7, num_flatten_dims=2)),
+    "fc_two_inputs": ([("a", (3, 4), "float32"), ("b", (3, 5), "float32")],
+                      lambda s, a, b: s.fc([a, b], size=6)),
+    "embedding": ([("ids", (2, 2), "int64")],
+                  lambda s, ids: s.embedding(ids, size=[10, 6])),
+    "sparse_embedding": ([("ids", (2, 2), "int64")],
+                         lambda s, ids: s.sparse_embedding(ids, size=[10, 6])),
+    "norms_prelu": ([("x", (2, 4, 6, 6), "float32")],
+                    lambda s, x: s.prelu(s.instance_norm(s.group_norm(
+                        s.batch_norm(x), groups=2)), mode="channel")),
+    "layer_norm": ([("x", (2, 4, 6, 6), "float32")],
+                   lambda s, x: s.layer_norm(x, begin_norm_axis=2)),
+    "data_norm": ([("x", (4, 3), "float32")], lambda s, x: s.data_norm(x)),
+    "prelu_element": ([("x", (2, 3, 4, 4), "float32")],
+                      lambda s, x: s.prelu(x, mode="element")),
+    "prelu_all": ([("x", (2, 3, 4, 4), "float32")],
+                  lambda s, x: s.prelu(x, mode="all")),
+    "bilinear": ([("a", (3, 4), "float32"), ("b", (3, 5), "float32")],
+                 lambda s, a, b: s.bilinear_tensor_product(a, b, size=7,
+                                                           act="tanh")),
+}
+
+
+@pytest.mark.parametrize("case", sorted(SNN_CASES))
+def test_static_nn_matches_jax(case):
+    specs, fn = SNN_CASES[case]
+    rng = _rng(6)
+    feed = {n: (rng.integers(0, 10, shape) if dt == "int64"
+                else rng.standard_normal(shape)).astype(dt)
+            for n, shape, dt in specs}
+
+    def build(paddle, static):
+        snn = jsnn if paddle is jp else tsnn
+        return fn(snn, *[static.data(n, list(shape), dt)
+                         for n, shape, dt in specs])
+
+    (jm, jy), (tm, ty) = _pair(build)
+    want = _run("jax", jm, feed, [jy])[0]
+    got = _run("torch", tm, feed, [ty])[0]
+    assert got.shape == want.shape
+    np.testing.assert_allclose(got, want, rtol=RTOL, atol=1e-5)
+
+
+# ---- serde -------------------------------------------------------------------
+
+def _serde_program():
+    def build(paddle, static):
+        x = static.data("x", [4, 8], "float32")
+        return paddle.tanh(paddle.nn.Linear(8, 3)(x))
+    return _program("torch", build)
+
+
+def test_serde_round_trip_matches_original(tmp_path):
+    tm, out = _serde_program()
+    blob = tm.serialize_to_string(fetch_vars=[out])
+    assert blob[:8] == b"PTTPROG1"
+    prog2, feeds2, fetches2 = tstatic.deserialize_program(blob)
+    assert list(feeds2) == ["x"] and len(fetches2) == 1
+    feed = {"x": _rng().standard_normal((4, 8)).astype(np.float32)}
+    want = _run("torch", tm, feed, [out])[0]
+    np.testing.assert_allclose(_run("torch", prog2, feed, fetches2)[0], want,
+                               rtol=1e-6)
+    path = str(tmp_path / "prog.pdmodel")
+    tstatic.save_program(tm, path, fetch_vars=[out])
+    prog3, _, fetches3 = tstatic.load_program(path)
+    np.testing.assert_allclose(_run("torch", prog3, feed, fetches3)[0], want,
+                               rtol=1e-6)
+    s = tm.to_string()
+    assert "feed x: float32[4, 8]" in s and "%0 = linear" in s
+    prog4 = tstatic.Program.parse_from_string(tm.serialize_to_string())
+    assert len(prog4._nodes) == len(tm._nodes) and str(prog4).count("%") >= 1
+
+
+def test_serde_closure_and_amp_programs():
+    with _static(tstatic):
+        main = tstatic.Program()
+        with tstatic.program_guard(main):
+            x = tstatic.data("x", [2], "float32")
+            scale = 3.0
+            y = tp.framework.tape.apply(lambda v: v * scale, x,
+                                        op_name="closure_scale")
+        prog2, _, f2 = tstatic.deserialize_program(
+            main.serialize_to_string(fetch_vars=[y]))
+        out = tstatic.Executor().run(
+            prog2, feed={"x": np.array([1.0, 2.0], np.float32)},
+            fetch_list=f2)[0]
+        np.testing.assert_allclose(out, [3.0, 6.0])
+        amp_prog = tstatic.Program()
+        with tstatic.program_guard(amp_prog):
+            x = tstatic.data("x", [4, 8], "float32")
+            with tp.amp.auto_cast(enable=True, dtype="bfloat16"):
+                out = tp.tanh(tp.nn.Linear(8, 3)(x))
+        assert out.dtype == tp.bfloat16
+        prog3, _, f3 = tstatic.deserialize_program(
+            amp_prog.serialize_to_string(fetch_vars=[out]))
+        feed = {"x": np.ones((4, 8), np.float32)}
+        exe = tstatic.Executor()
+        want = exe.run(amp_prog, feed=feed, fetch_list=[out],
+                       return_numpy=False)[0]
+        got = exe.run(prog3, feed=feed, fetch_list=f3, return_numpy=False)[0]
+        assert got.dtype == tp.bfloat16
+        assert torch.equal(got._value, want._value)
+
+
+def test_serde_refuses_what_it_cannot_write():
+    import threading
+    from paddle_tpu_torch.static import serde
+    with _static(tstatic):
+        main = tstatic.Program()
+        with tstatic.program_guard(main):
+            x = tstatic.data("x", [2], "float32")
+            lock = threading.Lock()
+
+            def weird(v):
+                assert lock is not None
+                return v * 2
+
+            y = tp.framework.tape.apply(weird, x, op_name="locked_op")
+        with pytest.raises(ValueError, match="locked_op"):
+            main.serialize_to_string(fetch_vars=[y])
+
+    class Evil:
+        def __reduce__(self):
+            return (os.path.join, ("pwn", "ed"))
+
+    with pytest.raises(pickle.UnpicklingError, match="may not reference"):
+        serde.deserialize_program(serde._MAGIC + pickle.dumps(
+            {"nodes": Evil()}))
+    with pytest.raises(ValueError, match="not a serialized"):
+        serde.deserialize_program(b"PTPROG01" + b"x")
+
+
+# ---- closure of the public names ----------------------------------------------
+
+# the deferrals, each with its ROADMAP item (Queue 1)
+NOT_PORTED = {
+    "static": {
+        # item 10: control flow and py_func wait for the jit lowering
+        "cond", "while_loop", "py_func",
+        # item 10: the inference model goes with jit/save_load.py (the
+        # names exist and raise NotImplementedError)
+        "save_inference_model", "load_inference_model",
+    },
+    "static.nn": {
+        # item 6.1: the conv layers
+        "conv2d", "conv2d_transpose", "conv3d", "conv3d_transpose",
+        # item 10: control flow and py_func
+        "control_flow", "while_loop", "cond", "case", "switch_case",
+        "py_func",
+        # item 5: ops/sequence.py
+        "sequence_pad", "sequence_unpad", "sequence_pool",
+        "sequence_softmax", "sequence_reverse", "sequence_expand",
+        "sequence_expand_as", "sequence_concat", "sequence_slice",
+        "sequence_enumerate", "sequence_first_step", "sequence_last_step",
+        "sequence_reshape", "sequence_erase",
+    },
+}
+
+
+def test_static_closure():
+    """Every public name of ``paddle_tpu.static`` and
+    ``paddle_tpu.static.nn`` is in the port's ``__all__`` or in
+    ``NOT_PORTED``; the names ``paddle_tpu.static`` re-exports from
+    ``nn.functional`` follow ``nn.functional``'s own closure (its
+    ``NOT_PORTED`` in ``test_torch_nn_functional.py``)."""
+    import paddle_tpu.nn.functional as jF
+    import paddle_tpu_torch.nn.functional as tF
+    functional_deferred = {n for n in dir(jF) if not n.startswith("_")} \
+        - set(tF.__all__)
+    for mod, jmod, tmod in (("static", jstatic, tstatic),
+                            ("static.nn", jsnn, tsnn)):
+        jnames = {n for n in dir(jmod) if not n.startswith("_")}
+        deferred = NOT_PORTED[mod]
+        assert deferred <= jnames, sorted(deferred - jnames)
+        missing = jnames - set(tmod.__all__) - deferred
+        if mod == "static":
+            missing -= functional_deferred
+        assert not missing, (mod, sorted(missing))
+        assert not (deferred & set(tmod.__all__)), mod
+        for n in tmod.__all__:
+            assert hasattr(tmod, n), (mod, n)
+    assert tp.enable_static is tstatic.enable_static
+    assert tp.disable_static is tstatic.disable_static
+    assert tstatic.amp is tp.amp
