@@ -2,10 +2,10 @@
 
     python3 chip_smoke.py [--json-out PATH] [--parent ROOT]
 
-Seventeen phases, one result per line, in this order: build,
+Eighteen phases, one result per line, in this order: build,
 tensor_api, flash, flash_bwd, paged, paged_prefill, int8, moe_dispatch,
 serving, serving_prefix, serving_int8, serving_moe, checkpoint, training,
-training_moe, training_bert, training_bert_static:
+training_moe, training_bert, training_bert_static, training_resnet50:
 
 1. device and build — the card's name and power limit, and the build of
    every CUDA kernel from ``paddle_tpu_torch/csrc`` with nvcc for sm_90a;
@@ -215,7 +215,35 @@ training_moe, training_bert, training_bert_static:
     and draws at attention dropout 0, 3 runs (the program's second on
     numpy feeds), every loss and trained parameter bit for bit, f32 at 2
     layers and bf16 at full width; ``training_bert``'s tokens/s from the
-    same call beside it.
+    same call beside it;
+14. ``training_resnet50`` — ResNet-50 (BASELINE config #1) built from the
+    ported ``paddle.vision.models`` (``resnet50(num_classes=1000)``,
+    25,557,032 f32 parameters and 106 BN buffers from a seed), B = 128,
+    3 x 224 x 224 images and labels from ``default_rng(0)``,
+    ``cross_entropy``, ``Momentum(0.1, 0.9)`` under ``auto_cast(bf16)``.
+    (a) ``bench_resnet50``'s static build and run sequence
+    (``bench.py:495-504`` through ``:451-457``): ``static.data``, the
+    model, ``minimize``, device-resident feeds, ``Executor.run(...,
+    return_numpy=False)``, one CUDA graph per feed signature; first two
+    runs on an Executor of their own fetching ``conv1.weight`` and
+    ``bn1._mean`` too (the first run's eager step and a replay: each fetch
+    the value before its run, in storage of its own that the next run
+    leaves alone), then 2 warm-up and 10 timed runs with one sync. (b) the
+    same model from the same seed through ``ParallelTrainStep`` with the
+    loss under ``auto_cast(bf16)``, captured: 2 warm-up and 10 timed
+    replays. Each part: imgs/s, step p50 and the device's span, host
+    staging + launch, peak memory, the first step and the capture, pool
+    bytes, one profiled step (busy share; cuDNN's convolutions and layout
+    transposes, the fc's GEMM, casts, the BN reductions and elementwise
+    work), MFU at bench.py's 3 x 4.1e9 FLOP/img and at 3 x 2 FLOP a
+    multiply-add counted from the model's conv and fc shapes; checks:
+    finite losses, every BN buffer moved by every step, no host sync in
+    the first call or a replay, one graph, no kernel of the table
+    launched. Then static = dygraph with ``cudnn.deterministic`` on for
+    both: 3 runs (the program's second on numpy feeds) against 3
+    ``ParallelTrainStep`` calls from the same weights and batch, every
+    loss, parameter and BN buffer bit for bit, in f32 with ``resnet18``
+    at B = 4, 3 x 64 x 64 and in bf16 at full width.
 
 Exits non-zero, without the final line, when CUDA is unavailable or any
 phase fails. The last line is ``{"ok": true, "device": {...}}``; the line
@@ -227,6 +255,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import copy
+import gc
 import json
 import math
 import os
@@ -390,6 +419,14 @@ BERT_GRAPH_STEPS = 5
 # BERT-base on the static path (bench_bert's literal build): the runs the
 # static program is held to ParallelTrainStep over, bit for bit
 BERT_STATIC_RUNS = 3
+# ResNet-50 (BASELINE config #1): bench_resnet50 (bench.py:488) at B = 128,
+# 3 x 224 x 224, 1000 classes, Momentum(0.1, 0.9) under auto_cast(bf16),
+# on its static path and through ParallelTrainStep: 2 warm-up steps (the
+# first captures), 10 timed; the static program held to ParallelTrainStep
+# bit for bit over 3 steps; bench.py's FLOP count a trained image
+RESNET_B, RESNET_HW, RESNET_CLASSES = 128, 224, 1000
+RESNET_WARMUP, RESNET_STEPS, RESNET_EQUAL_STEPS = 2, 10, 3
+RESNET_BENCH_FLOP_PER_IMG = 3 * 4.1e9
 
 
 _T0 = time.perf_counter()
@@ -4338,6 +4375,8 @@ def _bert_timed(torch, step, ids, labels, n):
 
 
 def _bert_profile(torch, fn):
+    """One profiled call of ``fn``: its numbers, and each kernel's device
+    microseconds by name."""
     wall, by_name = _device_time(torch, fn)
     groups = _group_times(by_name)
     busy_us = sum(by_name.values())
@@ -4347,7 +4386,8 @@ def _bert_profile(torch, fn):
                 busy_share=busy_us / 1e6 / wall if by_name else None,
                 device_ms_by_group={g: us / 1e3 for g, us in sorted(
                     groups.items(), key=lambda kv: -kv[1])},
-                top_kernels_ms=[(name[:100], us / 1e3) for name, us in top])
+                top_kernels_ms=[(name[:100], us / 1e3) for name, us in top]
+                ), by_name
 
 
 def _log_profile(label, e2e):
@@ -4414,7 +4454,7 @@ def _bert_captured_run(torch, np, res, label, **cfg_kw):
                host_syncs_replay=len(replay_syncs), launches=counts,
                launches_per_step=per_step[0], per_step=per_step,
                config=dict(cfg.__dict__), batch=[B, S])
-    e2e.update(_bert_profile(torch, lambda: float(step(ids, labels))))
+    e2e.update(_bert_profile(torch, lambda: float(step(ids, labels)))[0])
     _log(f"training_bert {label}: BertForPretraining(BertModel("
          f"bert_base_config({', '.join(f'{k}={v}' for k, v in cfg_kw.items())}"
          f"))): layers={cfg.num_hidden_layers} hidden={cfg.hidden_size} "
@@ -4475,7 +4515,7 @@ def _bert_eager_run(torch, np, res):
                mfu=tokens_per_s * fpt / PEAK_FLOPS["bfloat16"],
                max_memory_allocated_bytes=torch.cuda.max_memory_allocated(),
                losses=losses)
-    out.update(_bert_profile(torch, lambda: float(step(ids, labels))))
+    out.update(_bert_profile(torch, lambda: float(step(ids, labels)))[0])
     _log(f"training_bert (a) the eager facade step in the same call: "
          f"{tokens_per_s:.1f} tokens/s, step p50 {out['step_p50_ms']:.2f} ms, "
          f"host issue p50 {out['host_issue_p50_ms']:.2f} ms, device span p50 "
@@ -4794,7 +4834,7 @@ def _bert_static_run(torch, np, res, label, **cfg_kw):
                launches_per_step=per_run[0], per_step=per_run,
                fetch_kept=dict(run1=v1, run1_after_run2=float(r1), run2=v2),
                config=dict(cfg.__dict__), batch=[B, S])
-    e2e.update(_bert_profile(torch, lambda: float(run())))
+    e2e.update(_bert_profile(torch, lambda: float(run()))[0])
     kw_text = ", ".join(f"{k}={v}" for k, v in cfg_kw.items())
     _log(f"training_bert_static {label}: bench_bert's program (bench.py:534-"
          f"549) at bert_base_config({kw_text}): {len(main._nodes)} recorded "
@@ -4975,6 +5015,469 @@ def phase_training_bert_static(torch, np, res):
         torch.cuda.empty_cache()
 
 
+# ----------------------------------------------------------------- phase 18
+
+def _resnet_np_batch(np, b=None, hw=None, classes=None, seed=0):
+    """img [b, 3, hw, hw] f32 and label [b] int64, as bench_resnet50 draws
+    them (``default_rng(seed)``)."""
+    rng = np.random.default_rng(seed)
+    b, hw = b or RESNET_B, hw or RESNET_HW
+    img = rng.standard_normal((b, 3, hw, hw)).astype(np.float32)
+    label = rng.integers(0, classes or RESNET_CLASSES, b).astype(np.int64)
+    return img, label
+
+
+def _resnet_build(depth, classes):
+    from paddle_tpu_torch.vision import models
+    return getattr(models, f"resnet{depth}")(num_classes=classes)
+
+
+def _resnet_momentum(params):
+    import paddle_tpu_torch as paddle
+    return paddle.optimizer.Momentum(learning_rate=0.1, momentum=0.9,
+                                     parameters=params)
+
+
+def _resnet_static_build(seed, depth=50, b=None, hw=None, classes=None,
+                         bf16=True):
+    """bench_resnet50's build (bench.py:495-504) as it is, on the port:
+    ``static.data`` img [b, 3, hw, hw] f32 and label [b] int64,
+    ``resnet{depth}`` (its weights from ``paddle.seed(seed)``),
+    ``cross_entropy`` and ``Momentum(0.1, 0.9).minimize``, under
+    ``enable_static``, a ``program_guard`` and ``auto_cast(bf16)`` (off
+    with ``bf16=False``), as ``_timed_static_train`` (bench.py:451-457)
+    wraps it. Static mode stays on: the caller turns it off. Returns the
+    program, the loss and the model."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch import amp, static
+    b, hw = b or RESNET_B, hw or RESNET_HW
+    classes = classes or RESNET_CLASSES
+    paddle.seed(seed)
+    static.enable_static()
+    main = static.Program()
+    with static.program_guard(main):
+        with amp.auto_cast(enable=bf16, dtype="bfloat16"):
+            img = static.data("img", [b, 3, hw, hw], "float32")
+            label = static.data("label", [b], "int64")
+            net = _resnet_build(depth, classes)
+            loss = paddle.nn.functional.cross_entropy(net(img), label)
+            _resnet_momentum(net.parameters()).minimize(loss)
+    return main, loss, net
+
+
+def _resnet_loss(bf16):
+    """The loss_fn a user hands ParallelTrainStep: cross_entropy of the
+    logits, under ``auto_cast(bf16)`` (O1) unless ``bf16`` is False."""
+    def loss_fn(model, img, label):
+        import paddle_tpu_torch as paddle
+        with paddle.amp.auto_cast(enable=bf16, dtype="bfloat16"):
+            return paddle.nn.functional.cross_entropy(model(img), label)
+    return loss_fn
+
+
+def _resnet_step(seed, depth=50, classes=None, bf16=True):
+    """``resnet{depth}`` from ``paddle.seed(seed)`` on the card through
+    ``ParallelTrainStep`` with ``Momentum(0.1, 0.9)``."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.distributed import ParallelTrainStep
+    paddle.seed(seed)
+    net = _resnet_build(depth, classes or RESNET_CLASSES)
+    return net, ParallelTrainStep(net, _resnet_momentum(net.parameters()),
+                                  _resnet_loss(bf16))
+
+
+def _resnet_macs(torch, np, net, hw):
+    """Multiply-adds of one image's forward through ``net``'s convolutions
+    and fc, from the layers' own shapes (forward hooks over a B = 1 pass
+    on the card; a convolution's output elements x in/groups x k x k)."""
+    import paddle_tpu_torch as paddle
+    macs = []
+
+    def hook(layer, inputs, out):
+        w = layer.weight.shape
+        if isinstance(layer, paddle.nn.Linear):
+            macs.append(math.prod(out.shape[:-1]) * w[0] * w[1])
+        else:
+            macs.append(math.prod(out.shape) * math.prod(w[1:]))
+    hooks = [m.register_forward_post_hook(hook) for m in net.sublayers()
+             if isinstance(m, (paddle.nn.Conv2D, paddle.nn.Linear))]
+    was = net.training
+    net.eval()
+    with paddle.no_grad():
+        net(paddle.to_tensor(np.zeros((1, 3, hw, hw), np.float32)))
+    if was:
+        net.train()
+    for h in hooks:
+        h.remove()
+    return sum(macs), len(macs)
+
+
+def _bn_buffers(net):
+    """Every BN running statistic of ``net`` (two a BatchNorm)."""
+    return [v for k, v in net.state_dict().items()
+            if k.endswith(("._mean", "._variance"))]
+
+
+def _bn_moves(torch, snaps):
+    """How many of the snapshots' consecutive pairs change every BN
+    buffer, of how many pairs (each snapshot a list of buffer copies)."""
+    moved = [all(not torch.equal(a, b) for a, b in zip(s0, s1))
+             for s0, s1 in zip(snaps, snaps[1:])]
+    return sum(moved), len(moved)
+
+
+def _resnet_group(name):
+    """The kernel groups of a ResNet step: cuDNN's convolutions and its
+    layout transposes, the fc's GEMM, casts, pools, and the BatchNorm's
+    statistics (reductions) and apply (elementwise, with ReLU, the
+    residual adds and the Momentum update)."""
+    low = name.lower()
+    if "nchwtonhwc" in low or "nhwctonchw" in low:
+        return "NCHW<->NHWC transposes (cuDNN)"
+    if any(s in low for s in ("fprop", "dgrad", "wgrad", "implicit_gemm",
+                              "conv", "cudnn")):
+        return "convolutions (cuDNN)"
+    if any(s in low for s in ("gemm", "gemv", "nvjet", "cutlass", "xmma")):
+        return "GEMM-named kernels (cuDNN's convolution engines, the fc)"
+    if "direct_copy" in low:
+        return "casts and copies"
+    if "max_pool" in low:
+        return "max pool"
+    if "adaptive" in low or "avg_pool" in low:
+        return "adaptive avg pool"
+    if "reduce_kernel" in low:
+        return "reductions (BN statistics, loss)"
+    if "multi_tensor" in low or "elementwise" in low:
+        return ("elementwise (BN apply, ReLU, residual adds, Momentum, "
+                "loss)")
+    if name.startswith(("Memcpy", "Memset")):
+        return "memcpy/memset"
+    return "other"
+
+
+def _resnet_profile(torch, fn):
+    """One profiled step (``_bert_profile``) with ResNet's kernel groups,
+    and the three largest kernels of each group."""
+    out, by_name = _bert_profile(torch, fn)
+    groups, largest = {}, {}
+    for name, us in sorted(by_name.items(), key=lambda kv: -kv[1]):
+        g = _resnet_group(name)
+        groups[g] = groups.get(g, 0.0) + us
+        if len(largest.setdefault(g, [])) < 3:
+            largest[g].append((name[:100], us / 1e3))
+    out["device_ms_by_group"] = {g: us / 1e3 for g, us in sorted(
+        groups.items(), key=lambda kv: -kv[1])}
+    out["largest_by_group_ms"] = largest
+    return out
+
+
+def _resnet_mfu(imgs_per_s, macs):
+    """MFU twice: at bench.py's 3 x 4.1e9 FLOP/img (4.1 G is ResNet-50's
+    multiply-add count, so it is about half the work), and at 3 x 2 FLOP
+    per multiply-add of the model's own convolutions and fc."""
+    return dict(mfu_bench=imgs_per_s * RESNET_BENCH_FLOP_PER_IMG
+                / PEAK_FLOPS["bfloat16"],
+                mfu_counted=imgs_per_s * 6 * macs / PEAK_FLOPS["bfloat16"],
+                flop_per_img_bench=RESNET_BENCH_FLOP_PER_IMG,
+                flop_per_img_counted=6 * macs, macs_per_img=macs)
+
+
+def _resnet_fetch_check(torch, main, loss, net, feed):
+    """Two runs of ``main`` fetching [loss, conv1.weight, bn1._mean] on an
+    Executor of their own (its first run is the eager step + capture, the
+    second a replay): each fetch equals the value before its run, a copy
+    that the next run leaves alone, while the run moved the parameter and
+    the buffer."""
+    from paddle_tpu_torch import static
+    exe = static.Executor()
+    w, m = net.conv1.weight, net.bn1._mean
+    before, fetched = [], []
+    for _ in range(2):
+        # detached: a clone on the autograd graph would keep conv1.weight's
+        # gradient accumulator (made on this stream) alive into the capture
+        before.append((w._value.detach().clone(), m._value.clone()))
+        _, fw, fm = exe.run(main, feed=feed, fetch_list=[loss, w, m],
+                            return_numpy=False)
+        fetched.append((fw._value, fm._value))
+    torch.cuda.synchronize()
+    ok = {}
+    for i, ((w0, m0), (fw, fm)) in enumerate(zip(before, fetched)):
+        ok[f"run{i + 1}_param_pre_update"] = torch.equal(fw, w0)
+        ok[f"run{i + 1}_buffer_pre_update"] = torch.equal(fm, m0)
+        ok[f"run{i + 1}_fresh_storage"] = (
+            fw.data_ptr() != w._value.data_ptr()
+            and fm.data_ptr() != m._value.data_ptr())
+    ok["param_moved"] = not torch.equal(before[1][0], before[0][0]) and \
+        not torch.equal(w._value, before[1][0])
+    ok["buffer_moved"] = not torch.equal(before[1][1], before[0][1]) and \
+        not torch.equal(m._value, before[1][1])
+    ok["graphs"] = len(exe.graphs(main))
+    _log(f"training_resnet50 (a) fetched conv1.weight and bn1._mean over a "
+         f"first run and a replay: {ok}")
+    if not all(v for k, v in ok.items() if k != "graphs") or \
+            ok["graphs"] != 1:
+        raise AssertionError(f"training_resnet50: a fetched parameter or "
+                             f"buffer is not the value its run read: {ok}")
+    del exe
+    gc.collect()
+    torch.cuda.empty_cache()
+    return ok
+
+
+def _resnet_measured(torch, net, run, timed):
+    """What parts (a) and (b) measure alike. ``run()`` takes one step:
+    the first call (the eager step + the capture) and RESNET_WARMUP - 1
+    more, then ``timed(RESNET_STEPS)`` (losses, walls, host issue times,
+    device spans and each step's launches), then one replay for its syncs;
+    the BN statistics after every step. Returns the shared numbers, the
+    timed walls and the host issue times."""
+    bufs = _bn_buffers(net)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    snaps = [[b._value.clone() for b in bufs]]
+    first = []
+    t0 = time.perf_counter()
+    first_syncs = _syncs_in(torch, lambda: first.append(run()))
+    losses = [float(first[0])]
+    first_s = time.perf_counter() - t0
+    snaps.append([b._value.clone() for b in bufs])
+    for _ in range(RESNET_WARMUP - 1):
+        losses.append(float(run()))
+        snaps.append([b._value.clone() for b in bufs])
+    _zero_counts()
+    timed_losses, walls, issues, spans, per_step = timed(RESNET_STEPS)
+    losses += timed_losses
+    counts = _counts()
+    peak = torch.cuda.max_memory_allocated()
+    replay_syncs = _syncs_in(torch, run)
+    snaps.append([b._value.clone() for b in bufs])
+    torch.cuda.synchronize()
+    e2e = dict(imgs_per_s=RESNET_B * RESNET_STEPS / sum(walls),
+               device_span_ms=spans,
+               n_params=sum(p.size for p in net.parameters()),
+               max_memory_allocated_bytes=peak, first_call_s=first_s,
+               losses=losses, host_syncs_first_call=len(first_syncs),
+               host_syncs_replay=len(replay_syncs), launches=counts,
+               per_step=per_step, bn_buffers=len(bufs),
+               bn_moved_every_step=_bn_moves(torch, snaps),
+               batch=[RESNET_B, 3, RESNET_HW, RESNET_HW],
+               classes=RESNET_CLASSES)
+    return e2e, walls, issues
+
+
+def _resnet_static_run(torch, np, res):
+    """(a) bench_resnet50's static program at full size: the fetch check
+    (an Executor of its own), then bench's loop on another (timed runs
+    with one sync), the host's staging + launch alone, one profiled run,
+    and the checks. Static mode is off when it returns, unless it
+    raised."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch import static
+    t_build = time.perf_counter()
+    main, loss, net = _resnet_static_build(0)
+    build_s = time.perf_counter() - t_build
+    img, label = (paddle.to_tensor(a) for a in _resnet_np_batch(np))
+    feed = {"img": img, "label": label}
+    fetch = _resnet_fetch_check(torch, main, loss, net, feed)
+    exe = static.Executor()
+
+    def run():
+        return exe.run(main, feed=feed, fetch_list=[loss],
+                       return_numpy=False)[0]
+
+    def timed(n):
+        losses, wall, issues, spans, per_run = _static_runs(
+            torch, exe, main, feed, loss, n)
+        return losses, [wall], issues, spans, per_run
+    e2e, walls, issues = _resnet_measured(torch, net, run, timed)
+    idle = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        run()
+        idle.append(time.perf_counter() - t1)
+    torch.cuda.synchronize()
+    e2e.update(step_p50_ms=_pct(e2e["device_span_ms"], 0.5),
+               host_issue_p50_ms=_pct(idle, 0.5) * 1e3,
+               host_issue_ms=[x * 1e3 for x in idle],
+               host_in_loop_p50_ms=_pct(issues, 0.5) * 1e3,
+               timed_wall_s=walls[0], build_s=build_s,
+               n_nodes=len(main._nodes), capture_s=exe.capture_s,
+               graphs=len(exe.graphs(main)),
+               pool_bytes=exe.graph_pool_bytes(), fetch_check=fetch)
+    e2e.update(_resnet_profile(torch, lambda: float(run())))
+    # the layers' shapes from an eager pass (in static mode it would record)
+    static.disable_static()
+    macs, e2e["conv_fc_layers"] = _resnet_macs(torch, np, net, RESNET_HW)
+    e2e.update(_resnet_mfu(e2e["imgs_per_s"], macs))
+    _resnet_checks("(a)", e2e)
+    _resnet_log("(a) bench_resnet50's static program (bench.py:495-504) "
+                f"through static.Executor, {len(main._nodes)} recorded "
+                f"nodes (built in {build_s:.2f} s)", e2e, res)
+    return e2e
+
+
+def _resnet_checks(label, e2e):
+    moved, pairs = e2e["bn_moved_every_step"]
+    if not all(math.isfinite(x) for x in e2e["losses"]):
+        raise AssertionError(f"training_resnet50 {label} losses not finite: "
+                             f"{e2e['losses']}")
+    if e2e["host_syncs_first_call"] or e2e["host_syncs_replay"]:
+        raise AssertionError(f"training_resnet50 {label} host syncs: first "
+                             f"call {e2e['host_syncs_first_call']}, replay "
+                             f"{e2e['host_syncs_replay']}")
+    if e2e["graphs"] != 1:
+        raise AssertionError(f"training_resnet50 {label}: {e2e['graphs']} "
+                             f"graphs for one signature")
+    if moved != pairs:
+        raise AssertionError(f"training_resnet50 {label}: the BN running "
+                             f"statistics changed in {moved} of {pairs} "
+                             f"steps")
+    _check_counts(f"training_resnet50 {label} timed steps", e2e["launches"],
+                  {})
+
+
+def _resnet_log(head, e2e, res):
+    _log(f"training_resnet50 {head}: resnet50(num_classes="
+         f"{e2e['classes']}), {e2e['n_params']} f32 parameters, "
+         f"{e2e['bn_buffers']} BN buffers, batch {e2e['batch']}, auto_cast "
+         f"bf16 (O1), Momentum(0.1, 0.9); first call (eager step + capture) "
+         f"{e2e['first_call_s'] * 1e3:.1f} ms, capture "
+         f"{e2e['capture_s'] * 1e3:.1f} ms, graphs {e2e['graphs']}, pool "
+         f"{e2e['pool_bytes']} bytes, host syncs in the first call "
+         f"{e2e['host_syncs_first_call']}, in a replay "
+         f"{e2e['host_syncs_replay']}; BN statistics moved in "
+         f"{e2e['bn_moved_every_step'][0]} of "
+         f"{e2e['bn_moved_every_step'][1]} steps")
+    _log(f"training_resnet50 {head}: {RESNET_STEPS} timed steps: "
+         f"{e2e['imgs_per_s']:.1f} imgs/s, step p50 {e2e['step_p50_ms']:.2f} "
+         f"ms (device span: {', '.join(f'{x:.2f}' for x in e2e['device_span_ms'])}), "
+         f"host stage + launch p50 {e2e['host_issue_p50_ms']:.3f} ms, MFU "
+         f"{e2e['mfu_bench']:.4f} at bench.py's 3 x 4.1e9 FLOP/img, "
+         f"{e2e['mfu_counted']:.4f} at 3 x 2 x {e2e['macs_per_img']} "
+         f"multiply-adds/img counted from the {e2e['conv_fc_layers']} conv "
+         f"and fc layers' shapes, peak memory "
+         f"{e2e['max_memory_allocated_bytes']} bytes; on "
+         f"{res.get('nvidia_smi')}")
+    _log(f"training_resnet50 {head} losses: "
+         f"{', '.join(f'{x:.6f}' for x in e2e['losses'])}")
+    _log_profile(f"one training_resnet50 {head.split(' ')[0]} step", e2e)
+    for g, names in e2e.get("largest_by_group_ms", {}).items():
+        _log(f"  largest of {g}: " + "; ".join(
+            f"{name} {ms:.3f} ms" for name, ms in names))
+
+
+def _resnet_step_run(torch, np, res):
+    """(b) the same model from the same seed through ParallelTrainStep
+    with auto_cast(bf16) and Momentum, captured: the first call and one
+    replay, RESNET_STEPS timed replays, the checks."""
+    import paddle_tpu_torch as paddle
+    net, step = _resnet_step(0)
+    img, label = (paddle.to_tensor(a) for a in _resnet_np_batch(np))
+    e2e, walls, issues = _resnet_measured(
+        torch, net, lambda: step(img, label),
+        lambda n: _bert_timed(torch, step, img, label, n))
+    macs, e2e["conv_fc_layers"] = _resnet_macs(torch, np, net, RESNET_HW)
+    e2e.update(step_p50_ms=_pct(walls, 0.5) * 1e3,
+               step_ms=[x * 1e3 for x in walls],
+               device_span_p50_ms=_pct(e2e["device_span_ms"], 0.5),
+               host_issue_p50_ms=_pct(issues, 0.5) * 1e3,
+               host_issue_ms=[x * 1e3 for x in issues],
+               capture_s=step.capture_s,
+               graphs=len(step.captured_signatures),
+               pool_bytes=step.graph_pool_bytes())
+    e2e.update(_resnet_mfu(e2e["imgs_per_s"], macs))
+    e2e.update(_resnet_profile(torch, lambda: float(step(img, label))))
+    _resnet_checks("(b)", e2e)
+    _resnet_log("(b) the dygraph model through ParallelTrainStep, captured",
+                e2e, res)
+    return e2e
+
+
+def _resnet_static_vs_step(torch, np, dt, depth, b, hw, classes):
+    """Static = dygraph: from the same weights (``paddle.seed(5)``) and
+    batch, RESNET_EQUAL_STEPS runs of bench_resnet50's program (the second
+    on numpy feeds) against as many calls of ParallelTrainStep's captured
+    step (its loss_fn under the same auto_cast), with
+    ``torch.backends.cudnn.deterministic`` on for both: every loss,
+    parameter and BN buffer bit for bit."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch import static
+    bf16 = dt == "bfloat16"
+    img_np, label_np = _resnet_np_batch(np, b, hw, classes, seed=3)
+    img, label = paddle.to_tensor(img_np), paddle.to_tensor(label_np)
+    was = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        net, step = _resnet_step(5, depth, classes, bf16)
+        step_losses = [float(step(img, label))
+                       for _ in range(RESNET_EQUAL_STEPS)]
+        step_state = {k: v._value.detach().clone()
+                      for k, v in net.state_dict().items()}
+        del step, net
+        gc.collect()
+        torch.cuda.empty_cache()
+        main, loss, snet = _resnet_static_build(5, depth, b, hw, classes,
+                                                bf16)
+        try:
+            exe = static.Executor()
+            losses = []
+            for i in range(RESNET_EQUAL_STEPS):
+                feed = {"img": img_np, "label": label_np} if i == 1 \
+                    else {"img": img, "label": label}
+                losses.append(float(exe.run(main, feed=feed,
+                                            fetch_list=[loss],
+                                            return_numpy=False)[0]))
+            graphs = len(exe.graphs(main))
+        finally:
+            static.disable_static()
+    finally:
+        torch.backends.cudnn.deterministic = was
+    diffs = {k: (v._value.float() - step_state[k].float()).abs().max().item()
+             for k, v in snet.state_dict().items()}
+    worst = max(diffs.items(), key=lambda kv: kv[1])
+    same = losses == step_losses and worst[1] == 0.0 and graphs == 1
+    _log(f"training_resnet50 static = dygraph, {dt}, resnet{depth}, B={b}, "
+         f"3x{hw}x{hw}, {classes} classes, cudnn.deterministic: "
+         f"{RESNET_EQUAL_STEPS} runs (the second on numpy feeds) losses "
+         f"{losses} vs ParallelTrainStep {step_losses}; {len(diffs)} "
+         f"parameters and BN buffers max |diff| {worst[1]:.3e} ({worst[0]}); "
+         f"graphs {graphs}: {'bit-equal' if same else 'DIFFER'}")
+    if not same:
+        raise AssertionError(f"training_resnet50 {dt}: the static program "
+                             f"differs from ParallelTrainStep")
+    del exe, main, loss, snet
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(losses=losses, step_losses=step_losses,
+                max_abs_diff=worst[1], worst=worst[0], n_state=len(diffs),
+                graphs=graphs, equal=same,
+                config=dict(depth=depth, batch=b, hw=hw, classes=classes))
+
+
+def phase_training_resnet50(torch, np, res):
+    from paddle_tpu_torch import static
+    try:
+        a = _resnet_static_run(torch, np, res)
+    finally:
+        static.disable_static()
+    gc.collect()
+    torch.cuda.empty_cache()
+    res["training_resnet50_static"] = a
+    b = _resnet_step_run(torch, np, res)
+    gc.collect()
+    torch.cuda.empty_cache()
+    res["training_resnet50_step"] = b
+    _log(f"training_resnet50 imgs/s: (a) static {a['imgs_per_s']:.1f}, (b) "
+         f"ParallelTrainStep {b['imgs_per_s']:.1f}")
+    a["static_vs_step"] = {
+        "float32": _resnet_static_vs_step(torch, np, "float32", 18, 4, 64,
+                                          RESNET_CLASSES),
+        "bfloat16": _resnet_static_vs_step(torch, np, "bfloat16", 50,
+                                           RESNET_B, RESNET_HW,
+                                           RESNET_CLASSES)}
+
+
 # --------------------------------------------------------------------- main
 
 def main(argv=None) -> int:
@@ -5026,7 +5529,9 @@ def main(argv=None) -> int:
               ("training_moe", lambda: phase_training_moe(torch, np, res)),
               ("training_bert", lambda: phase_training_bert(torch, np, res)),
               ("training_bert_static",
-               lambda: phase_training_bert_static(torch, np, res))]
+               lambda: phase_training_bert_static(torch, np, res)),
+              ("training_resnet50",
+               lambda: phase_training_resnet50(torch, np, res))]
     for name, fn in phases:
         t0 = time.perf_counter()
         try:
@@ -5096,6 +5601,13 @@ def main(argv=None) -> int:
     for key in ("flash", "flash_bwd_dq", "flash_bwd_dkv"):
         res[key]["launches_by_path"]["training_bert_static"] = \
             res["training_bert_static_flash"]["launches"][key]
+    # training_resnet50: the timed steps of both parts launch no kernel of
+    # the table (convolutions and pools are cuDNN's and ATen's), held
+    for key in ("flash", "flash_bwd_dq", "flash_bwd_dkv", "paged",
+                "paged_prefill", "int8", "moe_dispatch", "moe_combine"):
+        res[key]["launches_by_path"]["training_resnet50"] = sum(
+            res[part]["launches"][key] for part in (
+                "training_resnet50_static", "training_resnet50_step"))
     # checkpoint: the counted runs of the engines from_checkpoint built
     # (f32, captured), summed over the phase's GPT and MoE cases
     for key in ("flash", "paged", "int8", "moe_dispatch", "moe_combine"):

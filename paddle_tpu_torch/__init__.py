@@ -19,8 +19,10 @@ rest):
   ``save``/``load``; :mod:`.autograd` — ``PyLayer``;
 - :mod:`.ops` — the ``paddle.*`` ops and their Tensor methods, all at the
   top level (``import paddle_tpu_torch as paddle``);
-- :mod:`.nn` — ``Layer``, the layers, ``functional``, ``initializer`` and
-  the clips over the facade; :mod:`.models.bert` — BERT built from them;
+- :mod:`.nn` — ``Layer``, the layers (convolutions and poolings among
+  them), ``functional``, ``initializer`` and the clips over the facade;
+  :mod:`.models.bert` — BERT built from them; :mod:`.vision` — the
+  ``vision.models`` zoo (ResNet, VGG, MobileNets, ...) built from them;
 - :mod:`.static` — ``Program``, ``Executor``, ``data``, ``program_guard``,
   ``gradients``, ``static.nn`` and program (de)serialization: the facade's
   ops record under ``enable_static()`` (also at the top level) and the
@@ -67,7 +69,7 @@ from .framework.dtype import bool_ as bool  # noqa: E402,F401
 from .framework.io import save, load, CheckpointCorruptError  # noqa: E402,F401
 from .ops import *  # noqa: E402,F401,F403  (the paddle.* op surface)
 from . import ops  # noqa: E402,F401
-from . import amp, nn, optimizer  # noqa: E402,F401
+from . import amp, nn, optimizer, vision  # noqa: E402,F401
 from .nn.layer.layers import ParamAttr  # noqa: E402,F401
 from . import jit, static  # noqa: E402,F401
 from .static import enable_static, disable_static  # noqa: E402,F401

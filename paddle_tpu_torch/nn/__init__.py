@@ -1,7 +1,7 @@
 """``paddle.nn`` over the tensor facade (counterpart of ``paddle_tpu/nn``):
 ``Layer`` and ``ParamAttr``, the containers, the common, activation, norm,
-loss and transformer layers, ``functional``, ``initializer`` and the
-gradient clips. The convolution, pooling, RNN and extra layers and
+loss, transformer, convolution and pooling layers, ``functional``,
+``initializer`` and the gradient clips. The RNN and extra layers and
 ``nn.utils`` are not ported yet (``ROADMAP.md``, Queue 1).
 
 The torch-level ``Linear``/``LayerNorm`` the GPT and ERNIE-MoE models are
@@ -37,17 +37,28 @@ from .layer.transformer import (  # noqa: F401
     MultiHeadAttention, TransformerEncoderLayer, TransformerEncoder,
     TransformerDecoderLayer, TransformerDecoder, Transformer,
 )
+from .layer.conv import (  # noqa: F401
+    Conv1D, Conv2D, Conv3D, Conv1DTranspose, Conv2DTranspose,
+    Conv3DTranspose,
+)
+from .layer.pooling import (  # noqa: F401
+    AvgPool1D, AvgPool2D, AvgPool3D, MaxPool1D, MaxPool2D, MaxPool3D,
+    AdaptiveAvgPool1D, AdaptiveAvgPool2D, AdaptiveAvgPool3D,
+    AdaptiveMaxPool1D, AdaptiveMaxPool2D, AdaptiveMaxPool3D,
+)
 from .clip import (  # noqa: F401
     ClipGradByValue, ClipGradByNorm, ClipGradByGlobalNorm, clip_grad_norm_,
     clip_by_norm,
 )
 from . import clip, functional, initializer, layer  # noqa: F401
 from .layer import (activation as _activation, common as _common,
-                    container as _container, loss as _loss, norm as _norm,
+                    container as _container, conv as _conv, loss as _loss,
+                    norm as _norm, pooling as _pooling,
                     transformer as _transformer)
 
 __all__ = (["Layer", "ParamAttr", "clip", "functional", "initializer",
             "layer", "ClipGradByValue", "ClipGradByNorm",
             "ClipGradByGlobalNorm", "clip_grad_norm_", "clip_by_norm"]
            + _common.__all__ + _activation.__all__ + _norm.__all__
-           + _container.__all__ + _loss.__all__ + _transformer.__all__)
+           + _container.__all__ + _loss.__all__ + _transformer.__all__
+           + _conv.__all__ + _pooling.__all__)

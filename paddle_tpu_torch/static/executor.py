@@ -17,8 +17,10 @@ side stream, where a host sync raises, then the capture; later runs stage
 the feeds (numpy arrays through one pinned buffer, device tensors copied on
 the device) and lr, and replay. The facade's generator of the device is
 registered with each graph, so dropout draws new masks every run. A capture
-that fails raises; nothing falls back. Fetches are copies that no later run
-overwrites. On the CPU, and on CUDA inside
+that fails raises; nothing falls back. A fetch is the value the run read
+(a fetched parameter or buffer is copied inside the step, before the
+update writes it in place) and a copy that no later run overwrites. On the
+CPU, and on CUDA inside
 :func:`paddle_tpu_torch.framework.graphs.eager_step` (the yardstick the
 card checks hold the graphs against), the step runs eagerly.
 """
@@ -140,6 +142,7 @@ class _Entry:
         self.optimizer = opt[0] if opt else None
         self.roots = list(fetch_list) + upd_exprs + ([opt[1]] if opt else [])
         self.nodes, params = _collect_graph(self.roots)
+        self.read = params          # every Parameter the step reads
         self.n_fetch = len(fetch_list)
         target_ids = {id(t) for t in self.targets}
         self.params = []
@@ -150,9 +153,24 @@ class _Entry:
             self.optimizer._init_state(self.params)
         self.steps = CapturedSteps(device) if device.type == "cuda" else None
 
+    def _snapshot(self, fetched):
+        """The fetched values, each that shares storage with a concrete
+        Tensor of the program (a parameter, a buffer, a fetched non-lazy
+        Tensor, or a view of one) copied: the run's updates write those
+        in place, and the JAX Executor returns what the run read."""
+        concrete = [t for t in self.roots[:self.n_fetch]
+                    if isinstance(t, Tensor) and not isinstance(t,
+                                                                LazyTensor)]
+        held = {t._value.untyped_storage().data_ptr()
+                for t in self.read + self.targets + concrete}
+        return [o.detach().clone() if isinstance(o, torch.Tensor)
+                and o.untyped_storage().data_ptr() in held else o
+                for o in fetched]
+
     def step(self, feeds, *scalars):
         """Evaluate, differentiate and update on device tensors; returns
-        the fetched values (what a graph captures)."""
+        the fetched values (what a graph captures), as the run read them:
+        a fetched parameter or buffer is copied before the update."""
         fv = dict(zip(self.feed_names, feeds))
         with torch.set_grad_enabled(self.optimizer is not None):
             outs = _eval_graph(self.roots, fv, nodes=self.nodes)
@@ -162,6 +180,7 @@ class _Entry:
                     loss if loss.dim() == 0 else loss.sum(),
                     [p._value for p in self.params], materialize_grads=True)
         with torch.no_grad():
+            fetched = self._snapshot(outs[:self.n_fetch])
             if self.optimizer is not None:
                 self.optimizer._apply(list(zip(self.params, grads)),
                                       scalars[0])
@@ -170,7 +189,7 @@ class _Entry:
                                 self.targets)]):
                 t._value.copy_(v)
         return tuple(o.detach() if isinstance(o, torch.Tensor) else o
-                     for o in outs[:self.n_fetch])
+                     for o in fetched)
 
 
 def _feed_value(v, placeholder, device):

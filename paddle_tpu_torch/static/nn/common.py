@@ -1,11 +1,12 @@
 """paddle.static.nn layer-building functions (counterpart of
 ``paddle_tpu/static/nn/common.py``): each call builds the matching
 ``nn`` Layer (fresh parameters per call site, as the reference's) and
-applies it, which records into the current Program.
+applies it, which records into the current Program. The convolutions
+build the ``nn`` conv layers; the transposes derive ``filter_size`` from
+``output_size`` when it is not given, as the JAX functions do.
 
-The convolutions (``conv2d``, ``conv2d_transpose``, ``conv3d``,
-``conv3d_transpose``) wait for the port's conv layers, and ``py_func``
-for the ``jit`` lowering (``ROADMAP.md`` Queue 1 items 6.1 and 10).
+``py_func`` waits for the ``jit`` lowering (``ROADMAP.md`` Queue 1 item
+10).
 """
 from __future__ import annotations
 
@@ -13,7 +14,8 @@ from ... import nn
 from ...nn import functional as F
 from ...ops import manipulation as _manip
 
-__all__ = ["fc", "embedding", "sparse_embedding", "batch_norm", "layer_norm",
+__all__ = ["fc", "embedding", "sparse_embedding", "conv2d", "conv2d_transpose",
+           "conv3d", "conv3d_transpose", "batch_norm", "layer_norm",
            "group_norm", "instance_norm", "data_norm", "prelu",
            "bilinear_tensor_product"]
 
@@ -25,6 +27,24 @@ def _apply_act(out, act):
     if fn is None:
         raise ValueError(f"unknown activation {act!r} for static.nn layer")
     return fn(out)
+
+
+def _derive_transpose_kernel(in_sizes, out_sizes, stride, padding, dilation):
+    """``filter_size=None`` with ``output_size`` set (the reference's
+    contract): ``k = ((out - (in - 1) * stride + 2 * pad) - 1) // dilation
+    + 1`` per axis."""
+    if isinstance(padding, str):
+        raise ValueError(
+            "deriving filter_size from output_size needs numeric padding; "
+            f"got padding={padding!r} — pass filter_size explicitly")
+
+    def norm(v, n):
+        return list(v) if isinstance(v, (list, tuple)) else [v] * n
+    n = len(in_sizes)
+    s, p, d = (norm(stride, n), norm(padding, n), norm(dilation, n))
+    o = norm(out_sizes, n)
+    return [((o[i] - (in_sizes[i] - 1) * s[i] + 2 * p[i]) - 1) // d[i] + 1
+            for i in range(n)]
 
 
 def _flatten_to_2d(x, num_flatten_dims):
@@ -73,6 +93,68 @@ def sparse_embedding(input, size, padding_idx=None, is_test=False,
     one program it is a dense embedding lookup."""
     return embedding(input, size, padding_idx=padding_idx,
                      param_attr=param_attr, dtype=dtype)
+
+
+def _conv(layer, input, num_filters, filter_size, stride, padding, dilation,
+          groups, param_attr, bias_attr, act, data_format):
+    c_in = int(input.shape[1 if data_format.startswith("NC") else -1])
+    conv = layer(c_in, num_filters, filter_size, stride, padding,
+                 dilation=dilation, groups=groups, weight_attr=param_attr,
+                 bias_attr=bias_attr, data_format=data_format)
+    return _apply_act(conv(input), act)
+
+
+def _conv_transpose(layer, input, num_filters, output_size, filter_size,
+                    stride, padding, dilation, groups, param_attr, bias_attr,
+                    act, data_format):
+    channel_first = data_format.startswith("NC")
+    c_in = int(input.shape[1 if channel_first else -1])
+    if filter_size is None:
+        if output_size is None:
+            raise ValueError(f"{layer.__name__} needs filter_size or "
+                             f"output_size")
+        spatial = [int(s) for s in (input.shape[2:] if channel_first
+                                    else input.shape[1:-1])]
+        filter_size = _derive_transpose_kernel(spatial, output_size, stride,
+                                               padding, dilation)
+    conv = layer(c_in, num_filters, filter_size, stride, padding,
+                 dilation=dilation, groups=groups, weight_attr=param_attr,
+                 bias_attr=bias_attr, data_format=data_format)
+    return _apply_act(conv(input, output_size=output_size), act)
+
+
+def conv2d(input, num_filters, filter_size, stride=1, padding=0, dilation=1,
+           groups=1, param_attr=None, bias_attr=None, act=None,
+           data_format="NCHW", name=None):
+    return _conv(nn.Conv2D, input, num_filters, filter_size, stride, padding,
+                 dilation, groups, param_attr, bias_attr, act, data_format)
+
+
+def conv2d_transpose(input, num_filters, output_size=None, filter_size=None,
+                     stride=1, padding=0, dilation=1, groups=1,
+                     param_attr=None, bias_attr=None, act=None,
+                     data_format="NCHW", name=None):
+    return _conv_transpose(nn.Conv2DTranspose, input, num_filters,
+                           output_size, filter_size, stride, padding,
+                           dilation, groups, param_attr, bias_attr, act,
+                           data_format)
+
+
+def conv3d(input, num_filters, filter_size, stride=1, padding=0, dilation=1,
+           groups=1, param_attr=None, bias_attr=None, act=None,
+           data_format="NCDHW", name=None):
+    return _conv(nn.Conv3D, input, num_filters, filter_size, stride, padding,
+                 dilation, groups, param_attr, bias_attr, act, data_format)
+
+
+def conv3d_transpose(input, num_filters, output_size=None, filter_size=None,
+                     stride=1, padding=0, dilation=1, groups=1,
+                     param_attr=None, bias_attr=None, act=None,
+                     data_format="NCDHW", name=None):
+    return _conv_transpose(nn.Conv3DTranspose, input, num_filters,
+                           output_size, filter_size, stride, padding,
+                           dilation, groups, param_attr, bias_attr, act,
+                           data_format)
 
 
 def batch_norm(input, act=None, is_test=False, momentum=0.9, epsilon=1e-5,

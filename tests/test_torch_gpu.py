@@ -1950,3 +1950,246 @@ def test_static_failed_capture_raises(static_card):
     its first run, before any capture, and keeps no graph."""
     res = static_card["failing"]
     assert res["raised"] is not None and res["graphs"] == 0
+
+
+# ------------------------------------- convolutions and pools on the card
+
+# (function, input shapes, keyword arguments); inputs drawn from seeds
+CONV_POOL_CARD = {
+    "conv1d": ("conv1d", [(2, 4, 9), (6, 4, 3), (6,)], dict(padding=1)),
+    "conv2d": ("conv2d", [(2, 4, 9, 8), (6, 4, 3, 3), (6,)],
+               dict(padding=1)),
+    "conv2d_same_stride2": ("conv2d", [(2, 4, 9, 8), (6, 4, 3, 3)],
+                            dict(stride=2, padding="SAME")),
+    "conv2d_groups_dilation": ("conv2d", [(2, 4, 9, 8), (6, 2, 3, 3)],
+                               dict(padding=2, dilation=2, groups=2)),
+    "conv2d_nhwc": ("conv2d", [(2, 9, 8, 4), (6, 4, 3, 3), (6,)],
+                    dict(padding=[0, 1, 2, 1], data_format="NHWC")),
+    "conv2d_resnet_stem": ("conv2d", [(2, 3, 32, 32), (8, 3, 7, 7)],
+                           dict(stride=2, padding=3)),
+    "conv3d": ("conv3d", [(1, 4, 5, 6, 5), (6, 4, 3, 3, 3)],
+               dict(stride=2, padding="SAME")),
+    "conv1d_transpose": ("conv1d_transpose", [(2, 4, 5), (4, 3, 3), (3,)],
+                         dict(stride=2, padding=1, output_padding=1)),
+    "conv2d_transpose": ("conv2d_transpose", [(2, 4, 5, 4), (4, 3, 3, 3)],
+                         dict(stride=2, padding=1, output_size=[10, 8])),
+    "conv2d_transpose_groups": ("conv2d_transpose",
+                                [(2, 4, 5, 4), (4, 3, 3, 3), (6,)],
+                                dict(groups=2, padding=[1, 0, 0, 2],
+                                     stride=3, output_padding=2)),
+    "conv3d_transpose": ("conv3d_transpose", [(1, 4, 3, 4, 3),
+                                              (4, 3, 3, 3, 3)],
+                         dict(stride=2, padding=1)),
+    "max_pool2d": ("max_pool2d", [(2, 4, 9, 8)],
+                   dict(kernel_size=3, stride=2, padding=1)),
+    "max_pool2d_wide_pad": ("max_pool2d", [(2, 4, 9, 8)],
+                            dict(kernel_size=2, padding=2)),
+    "max_pool3d": ("max_pool3d", [(1, 4, 5, 6, 5)], dict(kernel_size=2)),
+    "avg_pool1d": ("avg_pool1d", [(2, 4, 9)],
+                   dict(kernel_size=3, stride=2, padding=1)),
+    "avg_pool2d_same": ("avg_pool2d", [(2, 4, 9, 8)],
+                        dict(kernel_size=3, stride=2, padding="SAME")),
+    "avg_pool2d_inclusive_nhwc": ("avg_pool2d", [(2, 9, 8, 4)],
+                                  dict(kernel_size=3, padding=1,
+                                       exclusive=False, data_format="NHWC")),
+    "adaptive_avg_pool2d": ("adaptive_avg_pool2d", [(2, 4, 9, 8)],
+                            dict(output_size=(1, 1))),
+    "adaptive_avg_pool2d_bins": ("adaptive_avg_pool2d", [(2, 4, 9, 8)],
+                                 dict(output_size=(4, 3))),
+    "adaptive_max_pool2d": ("adaptive_max_pool2d", [(2, 4, 9, 8)],
+                            dict(output_size=(4, 3))),
+    "adaptive_avg_pool3d": ("adaptive_avg_pool3d", [(1, 4, 5, 6, 5)],
+                            dict(output_size=(2, 4, 3))),
+}
+
+
+def _facade_on(dev, arrays):
+    """Facade Tensors of ``arrays`` on ``dev`` ("cpu" or "gpu"), the
+    current place put back."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.framework import place
+    prev = place._current_place
+    paddle.set_device(dev)
+    try:
+        return [paddle.to_tensor(a, stop_gradient=a.dtype.kind != "f")
+                for a in arrays]
+    finally:
+        place._current_place = prev
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", sorted(CONV_POOL_CARD))
+def test_conv_pool_on_card_match_cpu(case):
+    """Each convolution and pool on CUDA tensors (cuDNN and ATen) against
+    the same call on the CPU: the output and the gradients of sum(out * w)
+    over every float input, f32 with TF32 off."""
+    _cuda()
+    import paddle_tpu_torch as paddle
+    torch.backends.cudnn.allow_tf32 = False
+    fn, shapes, kw = CONV_POOL_CARD[case]
+    arrays = [_rand(s, i + 1) for i, s in enumerate(shapes)]
+    got = {}
+    for dev in ("cpu", "gpu"):
+        ins = _facade_on(dev, arrays)
+        out = getattr(paddle.nn.functional, fn)(*ins, **kw)
+        w = _facade_on(dev, [_rand(out.shape, 9)])[0]
+        paddle.sum(out * w).backward()
+        assert out._value.device.type == ("cuda" if dev == "gpu" else "cpu")
+        got[dev] = [out.numpy()] + [t.grad.numpy() for t in ins]
+    for i, (a, b) in enumerate(zip(got["gpu"], got["cpu"])):
+        np.testing.assert_allclose(a, b, rtol=TOL["float32"],
+                                   atol=TOL["float32"],
+                                   err_msg=f"{case} output/grad {i}")
+
+
+@pytest.mark.gpu
+def test_int_max_pool_on_card_matches_cpu():
+    """An integer max pool (the padded-view route) on the card equals the
+    CPU's exactly."""
+    _cuda()
+    import paddle_tpu_torch as paddle
+    x = np.random.default_rng(4).integers(-50, 50, (2, 3, 7, 6))
+    outs = [paddle.nn.functional.max_pool2d(
+        _facade_on(dev, [x])[0], 3, 2, 1).numpy() for dev in ("cpu", "gpu")]
+    np.testing.assert_array_equal(outs[1], outs[0])
+
+
+# ------------------------- the static Executor's fetch and ResNet on the card
+
+def _static_fetch_card_cases():
+    """A fetched parameter (Linear(3, 2) under SGD(0.5)) and a fetched BN
+    running mean (BatchNorm2D under SGD(0.1)) over 3 runs on the card: the
+    first run (eager step + capture), then replays. For each run: is the
+    fetch the value before the run, does it still read so after the last
+    run, and did the run move the tensor (JSON-ready)."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch import static
+    out = {}
+    for name, shape in (("linear", [4, 3]), ("bn", [4, 3, 2, 2])):
+        static.enable_static()
+        try:
+            main = static.Program()
+            with static.program_guard(main):
+                x = static.data("x", shape, "float32")
+                if name == "linear":
+                    layer = paddle.nn.Linear(3, 2)
+                    target = layer.weight
+                else:
+                    layer = paddle.nn.BatchNorm2D(3)
+                    target = layer._mean
+                loss = paddle.mean(layer(x))
+                paddle.optimizer.SGD(0.5, parameters=layer.parameters()) \
+                    .minimize(loss)
+        finally:
+            static.disable_static()
+        feed = {"x": _rand(shape, 5)}
+        exe = static.Executor()
+        before, fetched = [], []
+        for _ in range(3):
+            before.append(target._value.detach().clone())
+            r = exe.run(main, feed=feed, fetch_list=[loss, target],
+                        return_numpy=False)
+            fetched.append(r[1]._value)
+        torch.cuda.synchronize()
+        out[name] = dict(
+            pre_update=[torch.equal(f, b) for f, b in zip(fetched, before)],
+            moved=[not torch.equal(a, b) for a, b in
+                   zip(before[1:] + [target._value], before)],
+            fresh=[f.data_ptr() != target._value.data_ptr()
+                   for f in fetched],
+            graphs=len(exe.graphs(main)))
+    return out
+
+
+@pytest.fixture(scope="module")
+def static_fetch_card():
+    _cuda()
+    return _in_subprocess("_static_fetch_card_cases")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("what", ["linear", "bn"])
+def test_static_fetch_is_pre_update_on_card(static_fetch_card, what):
+    """The first run (the eager step) and every replay return the value
+    the run read, in storage of their own that later runs leave alone,
+    while each run moves the parameter or buffer."""
+    res = static_fetch_card[what]
+    assert res["pre_update"] == [True] * 3
+    assert res["moved"] == [True] * 3
+    assert res["fresh"] == [True] * 3
+    assert res["graphs"] == 1
+
+
+def _static_resnet18(seed):
+    """bench_resnet50's build with resnet18, 10 classes, B = 4, 3 x 64 x 64,
+    f32, on the card; static mode left off."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch import static
+    paddle.seed(seed)
+    static.enable_static()
+    try:
+        main = static.Program()
+        with static.program_guard(main):
+            img = static.data("img", [4, 3, 64, 64], "float32")
+            label = static.data("label", [4], "int64")
+            net = paddle.vision.models.resnet18(num_classes=10)
+            loss = paddle.nn.functional.cross_entropy(net(img), label)
+            paddle.optimizer.Momentum(
+                learning_rate=0.1, momentum=0.9,
+                parameters=net.parameters()).minimize(loss)
+    finally:
+        static.disable_static()
+    return main, loss, net
+
+
+def _static_resnet_card_cases():
+    """resnet18's static step captured (3 runs: the first captures) against
+    the same program from the same seed run eagerly (``eager_step``), with
+    cudnn.deterministic on: losses, every parameter and BN buffer, graphs,
+    launches of the kernel table (JSON-ready)."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch import static
+    from paddle_tpu_torch.framework.graphs import eager_step
+    torch.backends.cudnn.deterministic = True
+    rng = np.random.default_rng(3)
+    feed = {"img": paddle.to_tensor(rng.standard_normal(
+                (4, 3, 64, 64)).astype(np.float32)),
+            "label": paddle.to_tensor(rng.integers(0, 10, 4))}
+    runs = {}
+    for mode in ("captured", "eager"):
+        main, loss, net = _static_resnet18(5)
+        exe = static.Executor()
+        c0 = _ts_counts()
+        with (eager_step() if mode == "eager" else contextlib.nullcontext()):
+            losses = [float(exe.run(main, feed=feed, fetch_list=[loss])[0])
+                      for _ in range(3)]
+        runs[mode] = dict(
+            losses=losses, graphs=len(exe.graphs(main)),
+            counts=[a - b for a, b in zip(_ts_counts(), c0)],
+            state={k: v._value.detach().clone()
+                   for k, v in net.state_dict().items()})
+    cap, eag = runs["captured"], runs["eager"]
+    return dict(losses=cap["losses"], eager_losses=eag["losses"],
+                graphs=[cap["graphs"], eag["graphs"]],
+                counts=cap["counts"], n_state=len(cap["state"]),
+                differing=[k for k, v in cap["state"].items()
+                           if not torch.equal(v, eag["state"][k])])
+
+
+@pytest.fixture(scope="module")
+def static_resnet_card():
+    _cuda()
+    return _in_subprocess("_static_resnet_card_cases")
+
+
+@pytest.mark.gpu
+def test_static_resnet18_captured_equals_eager(static_resnet_card):
+    """resnet18's static Momentum step, one CUDA graph replayed, equals the
+    same program run eagerly bit for bit over 3 runs: losses, 62
+    parameters and 40 BN buffers; no kernel of the table launches."""
+    res = static_resnet_card
+    assert res["losses"] == res["eager_losses"]
+    assert all(np.isfinite(res["losses"]))
+    assert res["n_state"] == 102 and res["differing"] == []
+    assert res["graphs"] == [1, 0]
+    assert res["counts"] == [0] * 5

@@ -58,6 +58,24 @@ _PROBE = textwrap.dedent("""
             "paddle_tpu_torch.static.nn.common",
             "paddle_tpu_torch.jit",
             "paddle_tpu_torch.jit.save_load",
+            "paddle_tpu_torch.nn.functional.conv",
+            "paddle_tpu_torch.nn.functional.pooling",
+            "paddle_tpu_torch.nn.layer.conv",
+            "paddle_tpu_torch.nn.layer.pooling",
+            "paddle_tpu_torch.vision",
+            "paddle_tpu_torch.vision.models",
+            "paddle_tpu_torch.vision.models.resnet",
+            "paddle_tpu_torch.vision.models.lenet",
+            "paddle_tpu_torch.vision.models.alexnet",
+            "paddle_tpu_torch.vision.models.vgg",
+            "paddle_tpu_torch.vision.models.mobilenetv1",
+            "paddle_tpu_torch.vision.models.mobilenet",
+            "paddle_tpu_torch.vision.models.mobilenetv3",
+            "paddle_tpu_torch.vision.models.squeezenet",
+            "paddle_tpu_torch.vision.models.shufflenetv2",
+            "paddle_tpu_torch.vision.models.densenet",
+            "paddle_tpu_torch.vision.models.googlenet",
+            "paddle_tpu_torch.vision.models.inceptionv3",
             } <= set(names), names
     import chip_smoke
     bad = sorted(m for m in sys.modules
@@ -86,7 +104,8 @@ _PROBE = textwrap.dedent("""
         for make in (static_run, lambda: ServingEngine(model),
                      lambda: GPTModel(gpt_tiny_config()),
                      lambda: ErnieMoeModel(ernie_moe_tiny_config()),
-                     lambda: PagePool(4, 4, 1, 1, 4)):
+                     lambda: PagePool(4, 4, 1, 1, 4),
+                     lambda: paddle_tpu_torch.vision.models.resnet18()):
             try:
                 make()
             except RuntimeError as e:

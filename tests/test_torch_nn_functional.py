@@ -426,20 +426,18 @@ def test_functional_against_jax(name):
 
 
 def test_every_name_has_a_case():
-    covered = {n.split("#")[0] for n in CASES} | RANDOM
+    """Every name has a case here, or among test_torch_conv_pool.py's
+    (the convolutions and poolings)."""
+    from test_torch_conv_pool import CASES as CONV_POOL_CASES
+    covered = {n.split("#")[0] for n in list(CASES) + list(CONV_POOL_CASES)} \
+        | RANDOM
     missing = set(tp.nn.functional.__all__) - covered
     assert not missing, sorted(missing)
 
 
 # every public name of the JAX nn.functional the port leaves for later
-# (ROADMAP Queue 1: conv/pooling with ResNet50, then the extras)
+# (ROADMAP Queue 1: the extras)
 NOT_PORTED = {
-    # conv.py, pooling.py
-    "conv1d", "conv2d", "conv3d", "conv1d_transpose", "conv2d_transpose",
-    "conv3d_transpose", "avg_pool1d", "avg_pool2d", "avg_pool3d",
-    "max_pool1d", "max_pool2d", "max_pool3d", "adaptive_avg_pool1d",
-    "adaptive_avg_pool2d", "adaptive_avg_pool3d", "adaptive_max_pool1d",
-    "adaptive_max_pool2d", "adaptive_max_pool3d",
     # extras.py
     "pairwise_distance", "soft_margin_loss", "multi_label_soft_margin_loss",
     "multi_margin_loss", "triplet_margin_with_distance_loss",

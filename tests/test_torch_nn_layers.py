@@ -603,12 +603,6 @@ def test_user_layer_trains_with_adamw_and_parallel_train_step():
 # ---- nn's closure -----------------------------------------------------------
 
 NOT_PORTED = {
-    # nn/layer/conv.py, pooling.py (with ResNet50)
-    "Conv1D", "Conv2D", "Conv3D", "Conv1DTranspose", "Conv2DTranspose",
-    "Conv3DTranspose", "AvgPool1D", "AvgPool2D", "AvgPool3D", "MaxPool1D",
-    "MaxPool2D", "MaxPool3D", "AdaptiveAvgPool1D", "AdaptiveAvgPool2D",
-    "AdaptiveAvgPool3D", "AdaptiveMaxPool1D", "AdaptiveMaxPool2D",
-    "AdaptiveMaxPool3D",
     # nn/layer/rnn.py
     "SimpleRNNCell", "LSTMCell", "GRUCell", "SimpleRNN", "LSTM", "GRU",
     "RNN", "RNNCellBase",

@@ -731,8 +731,6 @@ NOT_PORTED = {
         "save_inference_model", "load_inference_model",
     },
     "static.nn": {
-        # item 6.1: the conv layers
-        "conv2d", "conv2d_transpose", "conv3d", "conv3d_transpose",
         # item 10: control flow and py_func
         "control_flow", "while_loop", "cond", "case", "switch_case",
         "py_func",
